@@ -1,0 +1,314 @@
+"""Main controller: the 500 Hz tick, split around the MPC solve.
+
+Partial port of qrw_tpu/core/controller.py: `make_controller`,
+`init_state`, `compute_pre` (joystick -> estimator -> hybrid state
+update -> gait -> footsteps -> swing trajectories -> reference states),
+`wbc_inputs` and `compute_post` with a precomputed WBC result (the
+fleet's lane-major WBC). Every function broadcasts over leading robot
+batch axes; the tick index `k` is a Python int.
+
+The reference quirks the JAX package keeps on purpose are kept here
+too: the Coriolis terms of the foot references use the PREVIOUS tick's
+feet_p_cmd / feet_v_cmd, the x/y/yaw hybrid state is integrated from the
+command ("perfect odometry"), and the security envelope reads the
+default Config's q_security.
+
+Not ported yet: the per-robot `compute` with its in-graph MPC, the
+per-robot WBC, and the DDP MPC backends (their imports stay lazy; a
+config that selects them raises NotImplementedError).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from qrw_tpu.config import Config
+from qrw_tpu.models.solo12 import H_INIT, make_solo12
+from qrw_tpu_torch.core import gait as gait_mod
+from qrw_tpu_torch.core import mpc as mpc_mod
+from qrw_tpu_torch.core import wbc as wbc_mod
+from qrw_tpu_torch.core.estimator import (DeviceData, EstimatorOutput,
+                                          EstimatorState,
+                                          init_estimator_state, run_filter)
+from qrw_tpu_torch.core.foot_trajectory import (FootTrajState,
+                                                make_foot_traj_state,
+                                                update_foot_trajectory)
+from qrw_tpu_torch.core.footstep import (FootstepState, make_footstep_state,
+                                         update_footsteps)
+from qrw_tpu_torch.core.joystick import v_ref_profile
+from qrw_tpu_torch.core.state_planner import compute_reference_states
+from qrw_tpu_torch.ops import qp, rbd
+from qrw_tpu_torch.ops.rotations import rot_z, rpy_to_quat, rpy_to_rot
+
+SHOULDERS = np.array([[0.1946, 0.1946, -0.1946, -0.1946],
+                      [0.14695, -0.14695, 0.14695, -0.14695],
+                      [0.0, 0.0, 0.0, 0.0]])
+
+
+class Result(NamedTuple):
+    """Joint-level command sent to the device."""
+    P: torch.Tensor       # (..., 12)
+    D: torch.Tensor       # (..., 12)
+    q_des: torch.Tensor   # (..., 12)
+    v_des: torch.Tensor   # (..., 12)
+    tau_ff: torch.Tensor  # (..., 12)
+
+
+class ControllerState(NamedTuple):
+    gait: gait_mod.GaitState
+    footstep: FootstepState
+    foot_traj: FootTrajState
+    estimator: EstimatorState
+    mpc: mpc_mod.MPCState
+    x_f_mpc: torch.Tensor        # (..., 24, N) latest MPC plan
+    x_f_next: torch.Tensor       # (..., 24, N)
+    last_xref: torch.Tensor      # (..., 12, N+1)
+    last_fsteps: torch.Tensor    # (..., N_gait, 12)
+    wbc: wbc_mod.WBCState
+    q: torch.Tensor              # (..., 19) hybrid state estimate
+    v: torch.Tensor              # (..., 18)
+    h_v: torch.Tensor            # (..., 18)
+    yaw_estim: torch.Tensor      # (...)
+    qdes: torch.Tensor           # (..., 12)
+    vdes: torch.Tensor           # (..., 12)
+    feet_p_cmd: torch.Tensor     # (..., 3, 4)
+    feet_v_cmd: torch.Tensor     # (..., 3, 4)
+    planner_target: torch.Tensor  # (..., 3, 4)
+    error: torch.Tensor          # (...) bool security latch
+    error_code: torch.Tensor     # (...) int32
+
+
+class Controller(NamedTuple):
+    """Static controller context: config + model + solver settings."""
+    cfg: Config
+    model: rbd.TorchModel
+    patterns: np.ndarray
+    mpc_settings: qp.QPSettings
+    wbc_settings: qp.QPSettings
+
+
+def make_controller(cfg: Config,
+                    mpc_settings: Optional[qp.QPSettings] = None,
+                    wbc_settings: Optional[qp.QPSettings] = None
+                    ) -> Controller:
+    if mpc_settings is None:
+        mpc_settings = qp.QPSettings(
+            sigma=cfg.osqp_sigma, alpha=cfg.osqp_alpha, rho=cfg.osqp_rho,
+            eps_abs=cfg.osqp_eps_abs, eps_rel=cfg.osqp_eps_rel,
+            max_iter=cfg.mpc_max_iter,
+            adaptive_rho_interval=cfg.osqp_adaptive_rho_interval,
+            adaptive_rho_tolerance=cfg.osqp_adaptive_rho_tolerance)
+    if wbc_settings is None:
+        wbc_settings = qp.QPSettings(eps_abs=cfg.wbc_eps_abs,
+                                     eps_rel=cfg.wbc_eps_rel,
+                                     max_iter=cfg.wbc_max_iter)
+    return Controller(cfg=cfg, model=rbd.to_torch(make_solo12()),
+                      patterns=gait_mod.gait_patterns(cfg),
+                      mpc_settings=mpc_settings, wbc_settings=wbc_settings)
+
+
+def init_state(ctl: Controller, dtype=torch.float32, gait: str = "trot",
+               device="cpu") -> ControllerState:
+    """One robot's initial controller state (no batch axis)."""
+    cfg = ctl.cfg
+    if cfg.mpc_planner or not cfg.type_MPC:
+        raise NotImplementedError("the DDP MPC backends are not ported yet")
+    kw = dict(dtype=dtype, device=device)
+    q_init = torch.tensor(cfg.q_init, **kw)
+    q = torch.cat([torch.tensor([0.0, 0.0, cfg.h_ref, 0.0, 0.0, 0.0, 1.0],
+                                **kw), q_init])
+    p0 = torch.as_tensor(np.vstack([SHOULDERS[:2], np.zeros((1, 4))]), **kw)
+    return ControllerState(
+        gait=gait_mod.make_gait(cfg, gait, dtype, device),
+        footstep=make_footstep_state(cfg, torch.as_tensor(SHOULDERS, **kw)),
+        foot_traj=make_foot_traj_state(p0),
+        estimator=init_estimator_state(cfg, H_INIT, dtype, device),
+        mpc=mpc_mod.init_mpc_state(cfg, dtype, device),
+        x_f_mpc=torch.zeros((24, cfg.n_steps), **kw),
+        x_f_next=torch.zeros((24, cfg.n_steps), **kw),
+        last_xref=torch.zeros((12, cfg.n_steps + 1), **kw),
+        last_fsteps=torch.zeros((cfg.N_gait, 12), **kw),
+        wbc=wbc_mod.init_wbc_state(dtype, device),
+        q=q, v=torch.zeros(18, **kw), h_v=torch.zeros(18, **kw),
+        yaw_estim=torch.zeros((), **kw), qdes=q_init.clone(),
+        vdes=torch.zeros(12, **kw), feet_p_cmd=torch.zeros((3, 4), **kw),
+        feet_v_cmd=torch.zeros((3, 4), **kw), planner_target=p0.clone(),
+        error=torch.tensor(False, device=device),
+        error_code=torch.zeros((), dtype=torch.int32, device=device))
+
+
+class PreMPC(NamedTuple):
+    """Pipeline values computed BEFORE the MPC solve of one tick."""
+    est: EstimatorOutput
+    v_ref: torch.Tensor          # (..., 18)
+    q: torch.Tensor              # (..., 19)
+    v: torch.Tensor              # (..., 18)
+    h_v: torch.Tensor            # (..., 18)
+    yaw_estim: torch.Tensor
+    oRh: torch.Tensor            # (..., 3, 3)
+    oTh: torch.Tensor            # (..., 3)
+    gait: gait_mod.GaitState
+    fs_state: FootstepState
+    ft_state: FootTrajState
+    fsteps: torch.Tensor         # (..., N_gait, 12) MPC footstep input
+    xref: torch.Tensor           # (..., 12, N+1) MPC reference input
+
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def compute_pre(ctl: Controller, state: ControllerState, device: DeviceData,
+                k: int, v_ref6=None, joystick_code: int = 0,
+                perfect_estimator: bool = False, est_fk=None) -> PreMPC:
+    """First half of a control tick, up to the MPC inputs. est_fk:
+    optional precomputed estimator foot kinematics."""
+    cfg = ctl.cfg
+    dtype, dev = state.q.dtype, state.q.device
+    k_mpc = cfg.k_mpc
+    batch = state.q.shape[:-1]
+
+    if v_ref6 is None:
+        v_ref6 = v_ref_profile(k, cfg.velID, dtype, dev)
+    v_ref6 = v_ref6.to(dtype).expand(batch + (6,))
+    v_ref = torch.cat([v_ref6, torch.zeros(batch + (12,), dtype=dtype,
+                                           device=dev)], dim=-1)
+
+    est = run_filter(cfg, ctl.model, state.estimator, k, state.gait.current,
+                     device, state.foot_traj.position,
+                     perfect=perfect_estimator, fk=est_fk)
+
+    # hybrid state update (Controller.updateState)
+    cy, sy = torch.cos(state.yaw_estim), torch.sin(state.yaw_estim)
+    dxy = torch.stack([cy * v_ref[..., 0] - sy * v_ref[..., 1],
+                       sy * v_ref[..., 0] + cy * v_ref[..., 1]],
+                      dim=-1) * cfg.dt_wbc
+    yaw_estim = state.yaw_estim + v_ref[..., 5] * cfg.dt_wbc
+    quat = rpy_to_quat(torch.stack([est.rpy[..., 0], est.rpy[..., 1],
+                                    yaw_estim], dim=-1))
+    q = torch.cat([state.q[..., 0:2] + dxy, est.q_filt[..., 2:3], quat,
+                   est.q_filt[..., 7:]], dim=-1)
+    v = est.v_filt
+    hRb = rpy_to_rot(torch.stack([est.rpy[..., 0], est.rpy[..., 1],
+                                  torch.zeros_like(yaw_estim)], dim=-1))
+    h_v = torch.cat([_mv(hRb, v[..., 0:3]), _mv(hRb, v[..., 3:6]),
+                     v[..., 6:]], dim=-1)
+    oRh = rot_z(yaw_estim)
+    oTh = torch.stack([q[..., 0], q[..., 1], torch.zeros_like(q[..., 0])],
+                      dim=-1)
+
+    gait = gait_mod.update_gait(state.gait, k, k_mpc, joystick_code,
+                                ctl.patterns)
+
+    refresh = (k % k_mpc == 0) and k != 0
+    fs_state, o_target, fsteps = update_footsteps(
+        cfg, torch.as_tensor(SHOULDERS, dtype=dtype, device=dev), gait,
+        state.footstep, refresh, float(k_mpc - k % k_mpc), q[..., 0:7],
+        h_v[..., 0:6], v_ref[..., 0:6])
+
+    swing_target = state.planner_target if cfg.mpc_planner else o_target
+    ft_state = update_foot_trajectory(cfg, gait, state.foot_traj, k,
+                                      swing_target)
+
+    xref = compute_reference_states(q[..., 0:7], h_v[..., 0:6],
+                                    v_ref[..., 0:6], dt_mpc=cfg.dt_mpc,
+                                    n_steps=cfg.n_steps, h_ref=cfg.h_ref)
+    return PreMPC(est=est, v_ref=v_ref, q=q, v=v, h_v=h_v,
+                  yaw_estim=yaw_estim, oRh=oRh, oTh=oTh, gait=gait,
+                  fs_state=fs_state, ft_state=ft_state, fsteps=fsteps,
+                  xref=xref)
+
+
+class WBCInputs(NamedTuple):
+    """Assembled whole-body-controller inputs of one tick."""
+    qj: torch.Tensor          # (..., 12)
+    b_v: torch.Tensor         # (..., 18)
+    f_cmd: torch.Tensor       # (..., 12)
+    contacts: torch.Tensor    # (..., 4)
+    feet_p_cmd: torch.Tensor  # (..., 3, 4)
+    feet_v_cmd: torch.Tensor  # (..., 3, 4)
+    feet_a_cmd: torch.Tensor  # (..., 3, 4)
+
+
+def wbc_inputs(ctl: Controller, state: ControllerState, pre: PreMPC,
+               x_f_mpc) -> WBCInputs:
+    """WBC target assembly + base-frame foot references. Of the WBC
+    target vector only its force rows reach the WBC (f_cmd)."""
+    cfg = ctl.cfg
+    v_ref, ft_state = pre.v_ref, pre.ft_state
+    oRhT = pre.oRh.transpose(-1, -2)
+    f_cmd = x_f_mpc[..., 12:24, 0]
+
+    # NOTE: the Coriolis terms intentionally use the PREVIOUS tick's
+    # feet_p_cmd / feet_v_cmd, like the reference.
+    w_ref = v_ref[..., None, 3:6]                          # (..., 1, 3)
+    prev_p = state.feet_p_cmd.transpose(-1, -2)            # (..., 4, 3)
+    prev_v = state.feet_v_cmd.transpose(-1, -2)
+    cr = torch.linalg.cross
+    feet_a_cmd = (oRhT @ ft_state.acceleration
+                  - cr(w_ref, cr(w_ref, prev_p)).transpose(-1, -2)
+                  - 2.0 * cr(w_ref, prev_v).transpose(-1, -2))
+    feet_v_cmd = (oRhT @ ft_state.velocity - v_ref[..., 0:3, None]
+                  - cr(w_ref, prev_p).transpose(-1, -2))
+    h_ref_vec = torch.tensor([0.0, 0.0, cfg.h_ref], dtype=v_ref.dtype,
+                             device=v_ref.device)
+    feet_p_cmd = oRhT @ (ft_state.position - h_ref_vec[:, None]
+                         - pre.oTh[..., :, None])
+    b_v = torch.cat([v_ref[..., 0:6], state.vdes], dim=-1)
+    return WBCInputs(qj=state.qdes, b_v=b_v, f_cmd=f_cmd,
+                     contacts=pre.gait.current[..., 0, :],
+                     feet_p_cmd=feet_p_cmd, feet_v_cmd=feet_v_cmd,
+                     feet_a_cmd=feet_a_cmd)
+
+
+def compute_post(ctl: Controller, state: ControllerState, pre: PreMPC,
+                 k: int, x_f_mpc, x_f_next, mpc_state, planner_target,
+                 wbc_res=None):
+    """Second half of a control tick: WBC target assembly, security
+    check, state update. `wbc_res` is the WBCResult for this tick's
+    `wbc_inputs(...)` (the fleet computes it lane-major)."""
+    if wbc_res is None:
+        raise NotImplementedError(
+            "the per-robot WBC is not ported yet: pass wbc_res")
+    cfg = ctl.cfg
+    dtype = state.q.dtype
+    est = pre.est
+
+    inp = wbc_inputs(ctl, state, pre, x_f_mpc)
+
+    # security check (scripts/Controller.py:341-365)
+    q_sec = torch.as_tensor(np.tile(np.asarray(Config().q_security), 4),
+                            dtype=dtype, device=state.q.device)
+    err_pos = torch.any(torch.abs(est.q_filt[..., 7:]) > q_sec, dim=-1)
+    err_vel = torch.any(torch.abs(est.v_secu) > cfg.v_security, dim=-1)
+    err_tau = torch.any(torch.abs(wbc_res.tau_ff) > cfg.tau_security, dim=-1)
+    new_err = state.error | err_pos | err_vel | err_tau
+    code = torch.where(err_pos, 1, torch.where(err_vel, 2, torch.where(
+        err_tau, 3, 0))).to(torch.int32)
+    code = torch.where(state.error, state.error_code, code)
+
+    e = new_err[..., None]
+    zeros = torch.zeros_like(wbc_res.tau_ff)
+    ones = torch.ones_like(zeros)
+    result = Result(
+        P=torch.where(e, zeros, cfg.joint_P * ones),
+        D=torch.where(e, cfg.damping_D * ones, cfg.joint_D * ones),
+        q_des=torch.where(e, zeros, wbc_res.qdes),
+        v_des=torch.where(e, zeros, wbc_res.vdes),
+        tau_ff=torch.where(e, zeros, cfg.tau_ff_scale * wbc_res.tau_ff))
+
+    mpc_tick = (k % cfg.k_mpc) == 0
+    new_state = ControllerState(
+        gait=pre.gait, footstep=pre.fs_state, foot_traj=pre.ft_state,
+        estimator=est.state, mpc=mpc_state, x_f_mpc=x_f_mpc,
+        x_f_next=x_f_next,
+        last_xref=pre.xref if mpc_tick else state.last_xref,
+        last_fsteps=pre.fsteps if mpc_tick else state.last_fsteps,
+        wbc=wbc_res.state, q=pre.q, v=pre.v, h_v=pre.h_v,
+        yaw_estim=pre.yaw_estim, qdes=wbc_res.qdes, vdes=wbc_res.vdes,
+        feet_p_cmd=inp.feet_p_cmd, feet_v_cmd=inp.feet_v_cmd,
+        planner_target=planner_target, error=new_err, error_code=code)
+    return new_state, result

@@ -1,0 +1,408 @@
+"""Phase-grouped, lane-major, matrix-free MPC QP solver (kernel K1).
+
+Port of qrw_tpu/ops/qp_phase.py. The math is the JAX package's:
+
+* one proximal-ADMM step per iteration with ONE shared metric per phase
+  class, x+ = x - Kbar_p^-1 (H_b x + q + A'(rho (A x - z) + y)),
+  clipped to the safeguard box;
+* H_b x applied matrix-free (torque slabs of the per-slot input blocks
+  and the two phase Gram matrices G1, G2);
+* the friction-pyramid products A x, A'y applied structurally;
+* every `check_every` iterations the OSQP unscaled termination test per
+  problem, recorded in `it_conv`; with `stop_at_eps`, a tile of
+  problems exits once all of them pass.
+
+Layout at the API is the JAX package's lane-major one: q (n, B),
+BlS (6, n, B), x0 (n, B), y0 (m, B); the batch is phase-sorted so that
+each `tile` of consecutive problems shares one phase (`phases_of`,
+(B // tile,)).
+
+`solve` is the dispatcher: CUDA tensors go to the hand-written kernel in
+qrw_tpu_torch/csrc/qp_phase.cu, CPU tensors to `solve_plain`, the plain
+PyTorch version with the same per-tile exit semantics. A CUDA tensor
+never falls back to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+X_CLIP = 100.0          # primal safeguard box [N]
+Y_CLIP = 1.0e4          # dual safeguard box
+
+# Counts launches of the CUDA kernel (one per `solve` call on CUDA
+# tensors). chip_smoke.py resets it before the fleet run and reads it
+# after.
+KERNEL_LAUNCHES = 0
+
+
+class PhaseQPData(NamedTuple):
+    """Static per-solve data shared across the batch (host-built)."""
+    A: torch.Tensor         # (m, n) reduced cone matrix
+    Kbar_inv: torch.Tensor  # (P, n, n) shared metric inverses per phase
+    onehot: torch.Tensor    # (P, N, cap) slot -> step one-hot
+    L: torch.Tensor         # (N, N) lower-triangular ones
+    P2: torch.Tensor        # (N, N) P2[k, j] = max(k - j, 0)
+    l: torch.Tensor         # (m,) cone lower bounds (-inf on 4 of 5 rows)
+    u: torch.Tensor         # (m,) cone upper bounds
+    wtop: torch.Tensor      # (6,) position-block state weights * c_scale
+    wbot: torch.Tensor      # (6,) velocity-block state weights * c_scale
+    w_force: float
+    dt: float
+    rho: float
+    sigma: float
+    alpha: float
+    c_scale: float = 1.0
+    G1: torch.Tensor = None  # (P, cap, cap) oh' P2'P2 oh
+    G2: torch.Tensor = None  # (P, cap, cap) oh' L'L oh
+    mu: float = 0.9
+    dt_m: float = 0.0        # dt / mass: constant force rows of Bl
+
+
+class PhaseQPResult(NamedTuple):
+    x: torch.Tensor          # (n, B)
+    y: torch.Tensor          # (m, B)
+    z: torch.Tensor          # (m, B)
+    pri_res: torch.Tensor    # (B,)
+    dua_res: torch.Tensor    # (B,)
+    converged: torch.Tensor  # (B,) bool
+    iters: torch.Tensor      # (B,) int32
+
+
+def a_apply(x, cap, mu):
+    """A x, structural: A = I_cap (x) C with C the 5x3 pyramid block.
+    x (3cap, ...) -> (5cap, ...)."""
+    x3 = x.reshape((cap, 3) + tuple(x.shape[1:]))
+    fx, fy, fz = x3[:, 0], x3[:, 1], x3[:, 2]
+    mfz = mu * fz
+    return torch.stack([fx - mfz, -fx - mfz, fy - mfz, -fy - mfz, -fz],
+                       dim=1).reshape((5 * cap,) + tuple(x.shape[1:]))
+
+
+def at_apply(y, cap, mu):
+    """A' y, structural. y (5cap, ...) -> (3cap, ...)."""
+    y5 = y.reshape((cap, 5) + tuple(y.shape[1:]))
+    gx = y5[:, 0] - y5[:, 1]
+    gy = y5[:, 2] - y5[:, 3]
+    gz = -mu * (y5[:, 0] + y5[:, 1] + y5[:, 2] + y5[:, 3]) - y5[:, 4]
+    return torch.stack([gx, gy, gz], dim=1).reshape(
+        (3 * cap,) + tuple(y.shape[1:]))
+
+
+def time_coupling(n_steps: int):
+    """(L, P2) prefix-sum constants of the SRB response (numpy f32)."""
+    k = np.arange(n_steps)
+    L = (k[:, None] >= k[None, :]).astype(np.float32)
+    P2 = np.maximum(k[:, None] - k[None, :], 0).astype(np.float32)
+    return L, P2
+
+
+def tor_slabs(BlS):
+    """(3, cap, 3, ...) slot-major slabs of the TORQUE rows of BlS
+    (6, 3cap, ...): slab[i][s, a] = Bl_s[3 + a, 3 s + i]."""
+    rest = tuple(BlS.shape[2:])
+    cap = BlS.shape[1] // 3
+    nr = len(rest)
+    t = BlS[3:6].reshape((3, cap, 3) + rest)
+    return t.permute((2, 1, 0) + tuple(range(3, 3 + nr))).contiguous()
+
+
+def _gram(G, v):
+    """G @ v over the slot axis. G (cap, cap) shared, or (nt, cap, cap)
+    per tile with v (cap, k, nt, tile)."""
+    if G.dim() == 2:
+        return torch.einsum("sc,c...->s...", G, v)
+    return torch.einsum("tsc,cktb->sktb", G, v)
+
+
+def hx_matfree(x, BlS_tor, G1, G2, d: PhaseQPData):
+    """H_b x, matrix-free. x (3cap, *T); BlS_tor (3, cap, 3, *T);
+    G1/G2 (cap, cap) shared, or (nt, cap, cap) per tile when
+    T = (nt, tile). H_b = Gr' W Gr + w_force I."""
+    cap = G1.shape[-1]
+    T = tuple(x.shape[1:])
+    x3 = x.reshape((cap, 3) + T)
+    b0, b1, b2 = BlS_tor[0], BlS_tor[1], BlS_tor[2]     # (cap, 3, *T)
+    ps_f = d.dt_m * x3
+    ps_t = (b0 * x3[:, 0:1] + b1 * x3[:, 1:2] + b2 * x3[:, 2:3])
+    psf = torch.cat([ps_f, ps_t], dim=1)                 # (cap, 6, *T)
+    ext = (None,) * len(T)
+    vS = (_gram(G1, psf) * (d.dt * d.dt) * d.wtop[(None, slice(None)) + ext]
+          + _gram(G2, psf) * d.wbot[(None, slice(None)) + ext])
+    vF = d.dt_m * vS[:, 0:3]
+    vT = vS[:, 3:6]
+    out = torch.stack([vF[:, 0] + (b0 * vT).sum(dim=1),
+                       vF[:, 1] + (b1 * vT).sum(dim=1),
+                       vF[:, 2] + (b2 * vT).sum(dim=1)], dim=1)
+    return out.reshape((3 * cap,) + T) + d.w_force * x
+
+
+def _kinv_step(Kinv, g):
+    if Kinv.dim() == 2:
+        return torch.einsum("ij,j...->i...", Kinv, g)
+    return torch.einsum("tij,jtb->itb", Kinv, g)
+
+
+def admm_iter(x, z, y, Ax, q, BlS_tor, G1, G2, Kinv, d: PhaseQPData):
+    """One prox-ADMM iteration, lane-major, carrying A x."""
+    cap = G1.shape[-1]
+    ext = (None,) * (x.dim() - 1)
+    lo, hi = d.l[(slice(None),) + ext], d.u[(slice(None),) + ext]
+    w = d.rho * (Ax - z) + y
+    Atw = at_apply(w, cap, d.mu)
+    g = hx_matfree(x, BlS_tor, G1, G2, d) + q + Atw
+    xt = x - _kinv_step(Kinv, g)
+    if d.alpha == 1.0:
+        xn = torch.clamp(xt, -X_CLIP, X_CLIP)
+        Axn = a_apply(xn, cap, d.mu)
+        zr = Axn
+    else:
+        xn = torch.clamp(d.alpha * xt + (1.0 - d.alpha) * x, -X_CLIP, X_CLIP)
+        zt = a_apply(xt, cap, d.mu)
+        zr = d.alpha * zt + (1.0 - d.alpha) * z
+        Axn = a_apply(xn, cap, d.mu)
+    zn = torch.minimum(torch.maximum(zr + y / d.rho, lo), hi)
+    yn = torch.clamp(y + d.rho * (zr - zn), -Y_CLIP, Y_CLIP)
+    return xn, zn, yn, Axn
+
+
+def residuals(x, z, y, Ax, q, BlS_tor, G1, G2, d: PhaseQPData):
+    """Unscaled residual norms and scales, reduced over axis 0."""
+    cap = G1.shape[-1]
+    Aty = at_apply(y, cap, d.mu)
+    Hx = hx_matfree(x, BlS_tor, G1, G2, d)
+    pri = torch.amax(torch.abs(Ax - z), dim=0)
+    dua = torch.amax(torch.abs(Hx + q + Aty), dim=0)
+    n1 = torch.maximum(torch.amax(torch.abs(Ax), dim=0),
+                       torch.amax(torch.abs(z), dim=0))
+    n2 = torch.maximum(torch.amax(torch.abs(Hx), dim=0),
+                       torch.amax(torch.abs(Aty), dim=0))
+    return pri, dua, n1, n2
+
+
+def _phases_tensor(phases_of, n_tiles, device):
+    ph = torch.as_tensor(np.asarray(phases_of) if not torch.is_tensor(
+        phases_of) else phases_of, device=device).to(torch.int64)
+    if ph.shape != (n_tiles,):
+        raise ValueError(f"phases_of must have shape ({n_tiles},), got "
+                         f"{tuple(ph.shape)}")
+    return ph
+
+
+def _finish(q, data, x, y, z, pri, dua, n1, n2, it_conv, eps_abs, eps_rel):
+    """OSQP-equivalent unscaled termination test on the final iterate
+    (the dual side divided back by the cost scaling)."""
+    ci = 1.0 / data.c_scale
+    dua = dua * ci
+    n2 = n2 * ci
+    nrm_q = torch.amax(torch.abs(q), dim=0) * ci
+    eps_p = eps_abs + eps_rel * n1
+    eps_d = eps_abs + eps_rel * torch.maximum(n2, nrm_q)
+    conv = (pri <= eps_p) & (dua <= eps_d)
+    return PhaseQPResult(x=x, y=y, z=z, pri_res=pri, dua_res=dua,
+                         converged=conv, iters=it_conv.to(torch.int32))
+
+
+def solve_plain(q, BlS, data: PhaseQPData, phases_of, x0=None, y0=None,
+                n_iters: int = 300, eps_abs: float = 1e-4,
+                eps_rel: float = 1e-4, tile: int = 128,
+                check_every: int = 25,
+                stop_at_eps: bool = False) -> PhaseQPResult:
+    """Plain PyTorch version of the kernel, same arguments as `solve`.
+
+    Tiles are computed together; with stop_at_eps a tile that passed
+    the termination test at a chunk boundary is frozen (torch.where),
+    so iterates and iteration counts follow the kernel tile for tile."""
+    n, B = q.shape
+    cap = n // 3
+    m = 5 * cap
+    if B % tile:
+        raise ValueError("batch must be a multiple of the tile")
+    nt = B // tile
+    dev, f32 = q.device, torch.float32
+    ph = _phases_tensor(phases_of, nt, dev)
+    Kinv = data.Kbar_inv.to(dev, f32)[ph]
+    G1 = data.G1.to(dev, f32)[ph]
+    G2 = data.G2.to(dev, f32)[ph]
+    d = data._replace(l=data.l.to(dev, f32), u=data.u.to(dev, f32),
+                      wtop=data.wtop.to(dev, f32),
+                      wbot=data.wbot.to(dev, f32))
+    shp = lambda a, r: a.to(f32).reshape(r, nt, tile)
+    qt = shp(q, n)
+    BlS_tor = tor_slabs(BlS.to(f32)).reshape(3, cap, 3, nt, tile)
+    x = (torch.zeros(n, nt, tile, dtype=f32, device=dev) if x0 is None
+         else shp(x0, n))
+    y = (torch.zeros(m, nt, tile, dtype=f32, device=dev) if y0 is None
+         else shp(y0, m))
+    Ax = a_apply(x, cap, d.mu)
+    z = Ax
+
+    ci = 1.0 / d.c_scale
+    nrm_q = torch.amax(torch.abs(qt), dim=0) * ci
+
+    def conv_test(x, z, y, Ax):
+        pri, dua, n1, n2 = residuals(x, z, y, Ax, qt, BlS_tor, G1, G2, d)
+        eps_p = eps_abs + eps_rel * n1
+        eps_d = eps_abs + eps_rel * torch.maximum(n2 * ci, nrm_q)
+        return (pri <= eps_p) & (dua * ci <= eps_d)
+
+    n_chunks = -(-n_iters // check_every)
+    it_conv = torch.full((nt, tile), float(n_iters), dtype=f32, device=dev)
+    active = torch.ones(nt, dtype=torch.bool, device=dev)
+    for c in range(n_chunks):
+        if stop_at_eps and not bool(active.any()):
+            break
+        hi = min((c + 1) * check_every, n_iters)
+        s = (x, z, y, Ax)
+        for _ in range(c * check_every, hi):
+            s = admm_iter(*s, qt, BlS_tor, G1, G2, Kinv, d)
+        cv = conv_test(*s)
+        it_new = torch.minimum(
+            it_conv, torch.where(cv, float(hi), float(n_iters)))
+        if stop_at_eps:
+            a = active[None, :, None]
+            x, z, y, Ax = (torch.where(a, new, old)
+                           for new, old in zip(s, (x, z, y, Ax)))
+            it_conv = torch.where(active[:, None], it_new, it_conv)
+            active = active & ~cv.all(dim=1)
+        else:
+            x, z, y, Ax = s
+            it_conv = it_new
+    pri, dua, n1, n2 = residuals(x, z, y, Ax, qt, BlS_tor, G1, G2, d)
+    flat = lambda a: a.reshape(a.shape[0], B) if a.dim() == 3 \
+        else a.reshape(B)
+    return _finish(flat(qt), data, flat(x), flat(y), flat(z), flat(pri),
+                   flat(dua), flat(n1), flat(n2), flat(it_conv), eps_abs,
+                   eps_rel)
+
+
+# ----------------------------------------------------------------------
+# The CUDA kernel (qrw_tpu_torch/csrc/qp_phase.cu)
+# ----------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _cfunc():
+    from qrw_tpu_torch import kernels
+    lib = kernels.library()
+    fn = lib.qrw_qp_phase_solve
+    if fn.argtypes is None:
+        fn.argtypes = ([_P] * 15 + [_P] + [_I] * 7 + [_F] * 9 + [_P])
+        fn.restype = _I
+        lib.qrw_qp_phase_smem_bytes.argtypes = [_I, _I]
+        lib.qrw_qp_phase_smem_bytes.restype = _I
+        lib.qrw_qp_phase_max_smem_bytes.argtypes = []
+        lib.qrw_qp_phase_max_smem_bytes.restype = _I
+    return lib
+
+
+def _check(name, t, shape, dtype, device):
+    if not torch.is_tensor(t):
+        raise TypeError(f"{name}: expected a tensor")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
+            tile, check_every, stop_at_eps):
+    """Launch the kernel on the current stream. Returns
+    (x, y, z, res (5, B)) with res rows pri, dua, n1, n2, it_conv."""
+    global KERNEL_LAUNCHES
+    n, B = q.shape
+    cap = n // 3
+    m = 5 * cap
+    P = data.Kbar_inv.shape[0]
+    dev, f32 = q.device, torch.float32
+    _check("q", q, (n, B), f32, dev)
+    _check("BlS_tor", BlS_tor, (3, cap, 3, B), f32, dev)
+    _check("x0", x0, (n, B), f32, dev)
+    _check("y0", y0, (m, B), f32, dev)
+    _check("Kbar_inv", data.Kbar_inv, (P, n, n), f32, dev)
+    _check("G1", data.G1, (P, cap, cap), f32, dev)
+    _check("G2", data.G2, (P, cap, cap), f32, dev)
+    _check("l", data.l, (m,), f32, dev)
+    _check("u", data.u, (m,), f32, dev)
+    _check("phases_of", ph, (B // tile,), torch.int32, dev)
+    if B % tile or not 32 <= tile <= 1024 or tile % 32:
+        raise ValueError(f"tile {tile} must be a multiple of 32 in "
+                         f"[32, 1024] dividing the batch {B}")
+    lib = _cfunc()
+    need = lib.qrw_qp_phase_smem_bytes(cap, tile)
+    have = lib.qrw_qp_phase_max_smem_bytes()
+    if need > have:
+        raise ValueError(f"qp_phase kernel needs {need} B of shared memory "
+                         f"per block at cap={cap}, tile={tile}; the card "
+                         f"offers {have}")
+    x = torch.empty((n, B), dtype=f32, device=dev)
+    y = torch.empty((m, B), dtype=f32, device=dev)
+    z = torch.empty((m, B), dtype=f32, device=dev)
+    ax = torch.empty((m, B), dtype=f32, device=dev)
+    res = torch.empty((5, B), dtype=f32, device=dev)
+    w12 = torch.cat([data.wtop.reshape(6), data.wbot.reshape(6)]).to(
+        "cpu", torch.float32).numpy()
+    w12_c = (ctypes.c_float * 12)(*[float(v) for v in w12])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.qrw_qp_phase_solve(
+        q.data_ptr(), BlS_tor.data_ptr(), x0.data_ptr(), y0.data_ptr(),
+        data.Kbar_inv.data_ptr(), data.G1.data_ptr(), data.G2.data_ptr(),
+        ph.data_ptr(), data.l.data_ptr(), data.u.data_ptr(),
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), ax.data_ptr(),
+        res.data_ptr(), ctypes.cast(w12_c, ctypes.c_void_p),
+        B, cap, tile, P, int(n_iters), int(check_every), int(stop_at_eps),
+        float(data.rho), float(data.alpha), float(data.mu),
+        float(data.dt * data.dt), float(data.dt_m), float(data.w_force),
+        float(1.0 / data.c_scale), float(eps_abs), float(eps_rel),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"qp_phase kernel launch failed: CUDA error "
+                           f"{err}")
+    KERNEL_LAUNCHES += 1
+    return x, y, z, res
+
+
+def solve(q, BlS, data: PhaseQPData, phases_of, x0=None, y0=None,
+          n_iters: int = 300, eps_abs: float = 1e-4, eps_rel: float = 1e-4,
+          tile: int = 128, check_every: int = 25,
+          stop_at_eps: bool = False) -> PhaseQPResult:
+    """Solve a phase-sorted batch: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. q (n, B); BlS (6, n, B); phases_of
+    (B // tile,) phase of each tile (numpy or a tensor); x0/y0 warm
+    starts in the same layout."""
+    if not torch.is_tensor(q):
+        raise TypeError("q must be a tensor")
+    if q.device.type == "cpu":
+        return solve_plain(q, BlS, data, phases_of, x0=x0, y0=y0,
+                           n_iters=n_iters, eps_abs=eps_abs,
+                           eps_rel=eps_rel, tile=tile,
+                           check_every=check_every, stop_at_eps=stop_at_eps)
+    if q.device.type != "cuda":
+        raise ValueError(f"qp_phase.solve: unsupported device {q.device}")
+    n, B = q.shape
+    m = 5 * (n // 3)
+    if B % tile:
+        raise ValueError("batch must be a multiple of the tile")
+    ph = _phases_tensor(phases_of, B // tile, q.device).to(torch.int32)
+    x0 = (torch.zeros((n, B), dtype=torch.float32, device=q.device)
+          if x0 is None else x0)
+    y0 = (torch.zeros((m, B), dtype=torch.float32, device=q.device)
+          if y0 is None else y0)
+    BlS_tor = tor_slabs(BlS)
+    x, y, z, res = _launch(q, BlS_tor, data, ph.contiguous(), x0, y0,
+                           n_iters, eps_abs, eps_rel, tile, check_every,
+                           stop_at_eps)
+    return _finish(q, data, x, y, z, res[0], res[1], res[2], res[3], res[4],
+                   eps_abs, eps_rel)

@@ -1,0 +1,204 @@
+"""Lane-major closed-loop fleet rollout: B robots, ONE batched MPC a cycle.
+
+Port of qrw_tpu/sim/fleet.py (`make_fleet`, `fleet_rollout`). Each 50 Hz
+cycle (k_mpc = 10 ticks):
+
+  tick k0:      compute_pre for the whole fleet (estimator foot
+                kinematics hoisted lane-major) -> ONE batched phase-
+                solver MPC (core/mpc_lane.solve_mpc_batch_phase, shift
+                and warm carry, per-tile phases rotated p -> p-1 as the
+                gait rolls) -> lane-major WBC -> compute_post ->
+                lane-major physics
+  ticks +1..+9: the same without the solve, consuming the held plan.
+
+On CUDA tensors the solve runs the hand-written kernel of ops/qp_phase;
+on CPU tensors its plain version. Failed lanes take the stale-plan
+fallback with a cold-restart carry. The rescue stage (rescue_cap > 0)
+is not ported yet and raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from qrw_tpu.config import Config
+from qrw_tpu_torch.convert import tree_map
+from qrw_tpu_torch.core import mpc_lane as ml
+from qrw_tpu_torch.core.controller import (Controller, ControllerState,
+                                           compute_post, compute_pre,
+                                           init_state, make_controller,
+                                           wbc_inputs)
+from qrw_tpu_torch.core.estimator import DeviceData
+from qrw_tpu_torch.core.wbc_lane import compute_wbc_lane
+from qrw_tpu_torch.ops import rbd_lane as rl
+from qrw_tpu_torch.sim.physics import SimState, init_sim_state
+from qrw_tpu_torch.sim.physics_lane import step_lane
+
+
+class FleetCarry(NamedTuple):
+    """Resumable fleet state."""
+    ctl_states: ControllerState     # (B, ...)
+    sim_states: SimState            # (B, ...)
+    devices: DeviceData             # (B, ...)
+    lane_state: ml.MPCLaneState     # lane-major warm carry (..., B)
+    tile_phase: torch.Tensor        # (B // tile,) int32 phase per tile
+    cycle: torch.Tensor             # () int32 cycles completed
+
+
+class FleetLog(NamedTuple):
+    """Per-tick fleet signals (T, B, ...)."""
+    base_pos: torch.Tensor          # (T, B, 3)
+    base_quat: torch.Tensor         # (T, B, 4)
+    f_mpc: torch.Tensor             # (T, B, 12) first-step plan consumed
+    tau_ff: torch.Tensor            # (T, B, 12)
+    error: torch.Tensor             # (T, B)
+
+
+class FleetCycleLog(NamedTuple):
+    """Per-MPC-cycle solver health (C, ...)."""
+    converged: torch.Tensor         # (C, B)
+    iters: torch.Tensor             # (C, B)
+    phase: torch.Tensor             # (C, B // tile)
+
+
+def _device_from_sim(ss: SimState) -> DeviceData:
+    return DeviceData(
+        base_lin_acc=torch.zeros_like(ss.q[..., 0:3]),
+        base_ang_vel=ss.v[..., 3:6], base_quat=ss.q[..., 3:7],
+        q_mes=ss.q[..., 7:], v_mes=ss.v[..., 6:],
+        dummy_pos=ss.q[..., 0:3], b_base_vel=ss.v[..., 0:3])
+
+
+def _check_device(device):
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA requested but torch.cuda.is_available() "
+                           "is False")
+    return device
+
+
+def make_fleet(cfg: Config, batch: int, ps: ml.PhaseStructure,
+               tile: int = 128, seed: int = 0, dtype=torch.float32,
+               perturb_q: float = 0.01, perturb_v: float = 0.02,
+               gait: str = "trot", device="cuda"
+               ) -> Tuple[Controller, FleetCarry]:
+    """(controller, initial fleet carry): B robots from the standard
+    init with per-robot joint-angle / base-velocity perturbations drawn
+    from a torch.Generator seeded with `seed`. The shared initial phase
+    is matched against `ps` by probing the tick-0 footstep support."""
+    device = _check_device(device)
+    if batch % tile:
+        raise ValueError("batch must be a multiple of the tile")
+    ctl = make_controller(cfg)
+    cs0 = init_state(ctl, dtype, gait=gait, device=device)
+    ss0 = init_sim_state(cfg, dtype=dtype, device=device)
+    rep = lambda a: a.expand((batch,) + tuple(a.shape)).clone()
+    cs_b = tree_map(rep, cs0)
+    ss_b = tree_map(rep, ss0)
+
+    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    dq = torch.randn((batch, 12), generator=gen, dtype=dtype)
+    dv = torch.randn((batch, 3), generator=gen, dtype=dtype)
+    q = ss_b.q.clone()
+    v = ss_b.v.clone()
+    q[:, 7:] += perturb_q * dq.to(device)
+    v[:, 0:3] += perturb_v * dv.to(device)
+    ss_b = ss_b._replace(q=q, v=v)
+    dev_b = _device_from_sim(ss_b)
+
+    pre0 = compute_pre(ctl, cs_b, dev_b, 0)
+    sup = (pre0.fsteps[0, :cfg.n_steps, 0::3] != 0).reshape(-1)
+    hit = torch.nonzero((ps.supports.to(device) == sup).all(dim=1))
+    if hit.numel() == 0:
+        raise ValueError("initial gait support not in the phase set")
+    tile_phase = torch.full((batch // tile,), int(hit[0, 0]),
+                            dtype=torch.int32, device=device)
+    carry = FleetCarry(
+        ctl_states=cs_b, sim_states=ss_b, devices=dev_b,
+        lane_state=ml.init_lane_state(cfg, batch, device=device),
+        tile_phase=tile_phase,
+        cycle=torch.zeros((), dtype=torch.int32, device=device))
+    return ctl, carry
+
+
+def fleet_rollout(ctl: Controller, carry: FleetCarry, n_cycles: int,
+                  ps: ml.PhaseStructure, tile: int = 128,
+                  n_iters: int = 300, rescue_cap: int = 0,
+                  perfect_estimator: bool = True, stop_at_eps: bool = True
+                  ) -> Tuple[FleetCarry, FleetLog, FleetCycleLog]:
+    """Run `n_cycles` MPC cycles (n_cycles * k_mpc ticks) of the fleet on
+    the cfg.velID velocity profile. Returns (carry, FleetLog,
+    FleetCycleLog); resumable: call again with the returned carry.
+
+    Not ported yet: the rescue stage (rescue_cap > 0 raises), per-robot
+    command / external-force schedules, terrain and the heterogeneous
+    fleet's per-tile phase ranges."""
+    if rescue_cap:
+        raise NotImplementedError(
+            "the rescue stage (rescue_cap > 0) is not ported yet")
+    cfg = ctl.cfg
+    k_mpc = cfg.k_mpc
+    B = carry.lane_state.f.shape[-1]
+    P = ps.data.Kbar_inv.shape[0]
+    dtype = carry.sim_states.q.dtype
+    lane_model = rl.solo12_lane()
+    cycle0 = int(carry.cycle)
+
+    def pre_tick(cs, dev, k):
+        """compute_pre with the estimator FK hoisted lane-major."""
+        qm = dev.q_mes.reshape(B, 4, 3).permute(1, 2, 0)
+        vm = dev.v_mes.reshape(B, 4, 3).permute(1, 2, 0)
+        kin = rl.frame_kinematics(lane_model, rl.ZV3, rl.EYE3, qm, None, vm)
+        pos = torch.stack([p.T for p in kin.pos], dim=2)
+        vel = torch.stack([p.T for p in kin.vel], dim=2)
+        return compute_pre(ctl, cs, dev, k, None, 0, perfect_estimator,
+                           est_fk=(pos, vel))
+
+    def post_tick(cs, pre, x_f_b, k):
+        inp = wbc_inputs(ctl, cs, pre, x_f_b)
+        wbc_b = compute_wbc_lane(cfg, lane_model, cs.wbc, inp.qj, inp.b_v,
+                                 inp.f_cmd, inp.contacts, inp.feet_p_cmd,
+                                 inp.feet_v_cmd, inp.feet_a_cmd)
+        return compute_post(ctl, cs, pre, k, x_f_b, x_f_b, cs.mpc,
+                            cs.planner_target, wbc_res=wbc_b)
+
+    def sim_tick(ss, res):
+        return step_lane(cfg, lane_model, ss, res.P, res.D, res.q_des,
+                         res.v_des, res.tau_ff)
+
+    cs, ss, dev = carry.ctl_states, carry.sim_states, carry.devices
+    lane_st, phases = carry.lane_state, carry.tile_phase
+    logs, cyc_logs = [], []
+    for ci in range(n_cycles):
+        k0 = (cycle0 + ci) * k_mpc
+        for dk in range(k_mpc):
+            k = k0 + dk
+            pre = pre_tick(cs, dev, k)
+            if dk == 0:
+                # the solve tick: ONE batched MPC for the whole fleet
+                xr_l = pre.xref.to(torch.float32).permute(1, 2, 0)
+                fs_l = pre.fsteps.to(torch.float32).permute(1, 2, 0)
+                x_f_l, lane_st, sol = ml.solve_mpc_batch_phase(
+                    cfg, xr_l, fs_l, ps, phases, state=lane_st, shift=True,
+                    n_iters=n_iters, tile=tile, stop_at_eps=stop_at_eps)
+                x_f_b = x_f_l.permute(2, 0, 1).to(dtype)
+                cyc_logs.append(FleetCycleLog(converged=sol.converged,
+                                              iters=sol.iters,
+                                              phase=phases))
+            else:
+                x_f_b = cs.x_f_mpc
+            cs, res = post_tick(cs, pre, x_f_b, k)
+            ss, dev = sim_tick(ss, res)
+            logs.append(FleetLog(base_pos=ss.q[:, 0:3],
+                                 base_quat=ss.q[:, 3:7],
+                                 f_mpc=x_f_b[:, 12:, 0], tau_ff=res.tau_ff,
+                                 error=cs.error))
+        phases = (phases - 1) % P
+
+    stack = lambda items: tree_map(lambda *xs: torch.stack(xs), *items)
+    carry2 = FleetCarry(ctl_states=cs, sim_states=ss, devices=dev,
+                        lane_state=lane_st, tile_phase=phases,
+                        cycle=carry.cycle + n_cycles)
+    return carry2, stack(logs), stack(cyc_logs)
