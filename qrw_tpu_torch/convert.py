@@ -10,7 +10,9 @@ through. `to_numpy` goes back: tensors become numpy arrays, and with
 NamedTuple takes the class found at the same place in `like`.
 
 Covered: PhaseQPData, PhaseStructure, ControllerState, SimState,
-DeviceData, MPCLaneState and FleetCarry, with everything they hold.
+DeviceData, MPCLaneState, MPCWarmState, FleetCarry and the solver
+results (PhaseQPResult, PallasQPResult, QPSolution), with everything
+they hold.
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ def _registry():
         from qrw_tpu_torch.core import (controller, estimator,
                                         foot_trajectory, footstep, gait,
                                         kalman, mpc, mpc_lane, wbc)
-        from qrw_tpu_torch.ops import qp_phase
+        from qrw_tpu_torch.ops import qp, qp_pallas, qp_phase
         from qrw_tpu_torch.sim import fleet, physics
         classes = [
             qp_phase.PhaseQPData, qp_phase.PhaseQPResult,
+            qp_pallas.PallasQPResult, qp.QPSolution, mpc.MPCWarmState,
             mpc_lane.PhaseStructure, mpc_lane.MPCLaneState,
             controller.ControllerState, controller.PreMPC,
             controller.Result, controller.WBCInputs,

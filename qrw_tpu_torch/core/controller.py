@@ -25,8 +25,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from qrw_tpu.config import Config
-from qrw_tpu.models.solo12 import H_INIT, make_solo12
+from qrw_tpu_torch.config import Config
+from qrw_tpu_torch.models.solo12 import H_INIT, make_solo12
 from qrw_tpu_torch.core import gait as gait_mod
 from qrw_tpu_torch.core import mpc as mpc_mod
 from qrw_tpu_torch.core import wbc as wbc_mod

@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.kalman import KF18State, kf18_init
 from qrw_tpu_torch.ops import rbd
 from qrw_tpu_torch.ops.rotations import quat_to_rot, quat_to_rpy, rpy_to_quat

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.gait import GaitState, phase_durations
 
 _B = np.zeros((6, 6))

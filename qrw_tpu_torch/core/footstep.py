@@ -12,7 +12,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.gait import GaitState, phase_durations
 from qrw_tpu_torch.ops.rotations import quat_to_rpy
 

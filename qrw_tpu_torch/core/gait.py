@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
 
 CODE_NONE = 0
 CODE_PACING = 1

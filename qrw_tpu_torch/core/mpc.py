@@ -1,28 +1,32 @@
-"""Centroidal convex MPC: the condensed-QP builders.
+"""Centroidal convex MPC: condensed-QP assembly and the support-reduced
+batched solver.
 
-Partial port of qrw_tpu/core/mpc.py (mpc.py:65-376 as the fleet reaches
+Partial port of qrw_tpu/core/mpc.py (mpc.py:65-489 as the fleet reaches
 it): the warm-start state carried by ControllerState, the constant cone
 matrix, the shared assembly of input blocks and free response, the
-support selection and the support-reduced QP builder that
-core/mpc_lane.build_phase_data uses for the shared proximal metric.
-The per-problem solvers (solve_mpc, solve_mpc_batch_reduced,
-solve_mpc_batch_pallas) are not ported yet.
+support selection, the support-reduced QP assembly (the shared proximal
+metric of core/mpc_lane.build_phase_data, and the rescue stage's
+problems), recover_dx and solve_mpc_batch_reduced with its warm carry,
+the solver of the rescue stage. The per-problem XLA-style solver
+(solve_mpc) and the full-size path (solve_mpc_batch_pallas) are not
+ported yet.
 
 States are eliminated analytically: dx = G f + h with
 G[k, j] = A^(k-1-j) B_j and A^p = I + p dt E (E nilpotent), as in the
-JAX package. One problem at a time (no batch axes): the fleet builds its
-problems lane-major in core/mpc_lane.
+JAX package. The assembly takes one problem or a leading batch axis; the
+fleet builds its phase-stage problems lane-major in core/mpc_lane.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
+from qrw_tpu_torch.ops import qp
 from qrw_tpu_torch.ops.rotations import skew
 
 
@@ -59,39 +63,42 @@ def init_mpc_state(cfg: Config, dtype=torch.float32,
 
 
 def gait_from_fsteps(fsteps, n_steps: int):
-    """(N, 4) contact flags from the footstep matrix (x == 0 is swing)."""
-    return (fsteps[:n_steps, 0::3] != 0.0).to(fsteps.dtype)
+    """(..., N, 4) contact flags from the footstep matrix (x == 0 is
+    swing)."""
+    return (fsteps[..., :n_steps, 0::3] != 0.0).to(fsteps.dtype)
 
 
 def _assemble_common(cfg: Config, xref, fsteps):
-    """Per-step input blocks Bl (N, 6, 12), free-response blocks hblk
-    (N, 12), box bounds (l, u) and the lower-triangular helpers."""
+    """Per-step input blocks Bl (..., N, 6, 12), free-response blocks
+    hblk (..., N, 12), box bounds (l, u) and the lower-triangular
+    helpers. xref (..., 12, N+1); fsteps (..., N_gait, 12)."""
     N = cfg.n_steps
     dt = cfg.dt_mpc
     dtype, dev = xref.dtype, xref.device
+    bs = tuple(xref.shape[:-2])
     gait = gait_from_fsteps(fsteps, N)
     gI = torch.as_tensor(np.asarray(cfg.gI).reshape(3, 3), dtype=dtype,
                          device=dev)
 
-    yaw = xref[5, :N]
+    yaw = xref[..., 5, :N]
     c, s = torch.cos(yaw), torch.sin(yaw)
     z = torch.zeros_like(c)
     o = torch.ones_like(c)
     Rz = torch.stack([torch.stack([c, -s, z], -1),
                       torch.stack([s, c, z], -1),
                       torch.stack([z, z, o], -1)], -2)
-    RgIR = torch.einsum("kji,jl,klm->kim", Rz, gI, Rz)
+    RgIR = torch.einsum("...kji,jl,...klm->...kim", Rz, gI, Rz)
     I_inv = torch.linalg.inv(RgIR)
 
-    feet = fsteps[:N].reshape(N, 4, 3)
-    com = xref[0:3, :N].T + torch.tensor([0.0, 0.0, cfg.offset_com_z],
-                                         dtype=dtype, device=dev)
-    lever = feet - com[:, None, :]
-    tor = dt * torch.einsum("kab,kibc->kaic", I_inv, skew(lever))
+    feet = fsteps[..., :N, :].reshape(bs + (N, 4, 3))
+    com = xref[..., 0:3, :N].transpose(-1, -2) + torch.tensor(
+        [0.0, 0.0, cfg.offset_com_z], dtype=dtype, device=dev)
+    lever = feet - com[..., :, None, :]
+    tor = dt * torch.einsum("...kab,...kibc->...kaic", I_inv, skew(lever))
     frc = (dt / cfg.mass) * torch.eye(3, dtype=dtype, device=dev)[
         :, None, :].expand(3, 4, 3)
-    Bl = torch.cat([frc[None].expand(N, 3, 4, 3), tor],
-                   dim=1).reshape(N, 6, 12)
+    Bl = torch.cat([frc.expand(bs + (N, 3, 4, 3)), tor],
+                   dim=-3).reshape(bs + (N, 6, 12))
 
     kk = torch.arange(N, device=dev)
     p = kk[:, None] - kk[None, :]
@@ -99,22 +106,24 @@ def _assemble_common(cfg: Config, xref, fsteps):
 
     gvec = torch.zeros(12, dtype=dtype, device=dev)
     gvec[8] = -cfg.gravity * dt
-    xj = xref[:, :N].T
-    Axj = torch.cat([xj[:, 0:6] + dt * xj[:, 6:12], xj[:, 6:12]], dim=1)
-    r = Axj + gvec[None, :] - xref[:, 1:N + 1].T
-    rE = torch.cat([r[:, 6:12], torch.zeros_like(r[:, 6:12])], dim=1)
-    hblk = (mask[:, :, None] * (r[None] + (p.to(dtype) * dt)[:, :, None]
-                                * rE[None])).sum(dim=1)
+    xj = xref[..., :, :N].transpose(-1, -2)
+    Axj = torch.cat([xj[..., 0:6] + dt * xj[..., 6:12], xj[..., 6:12]],
+                    dim=-1)
+    r = Axj + gvec - xref[..., :, 1:N + 1].transpose(-1, -2)
+    rE = torch.cat([r[..., 6:12], torch.zeros_like(r[..., 6:12])], dim=-1)
+    hblk = (mask[:, :, None] * (r[..., None, :, :]
+                                + (p.to(dtype) * dt)[:, :, None]
+                                * rE[..., None, :, :])).sum(dim=-2)
 
     inf = float("inf")
     l_f = torch.tensor([-inf, -inf, -inf, -inf, -cfg.fz_max], dtype=dtype,
-                       device=dev).repeat(4 * N)
-    u_f = torch.zeros(20 * N, dtype=dtype, device=dev)
-    contact = torch.repeat_interleave(gait.reshape(-1), 3)
+                       device=dev).repeat(4 * N).expand(bs + (20 * N,))
+    u_f = torch.zeros(bs + (20 * N,), dtype=dtype, device=dev)
+    contact = torch.repeat_interleave(gait.reshape(bs + (4 * N,)), 3, dim=-1)
     l_b = torch.where(contact > 0, -inf, 0.0).to(dtype)
     u_b = torch.where(contact > 0, inf, 0.0).to(dtype)
-    return (Bl, hblk, torch.cat([l_f, l_b]), torch.cat([u_f, u_b]), mask,
-            p)
+    return (Bl, hblk, torch.cat([l_f, l_b], dim=-1),
+            torch.cat([u_f, u_b], dim=-1), mask, p)
 
 
 @functools.lru_cache(maxsize=8)
@@ -132,46 +141,175 @@ def _h_coeffs(n_steps: int):
 
 
 def support_indices(stance_flat, cap: int):
-    """Up to `cap` stance (step, foot) pairs of the (4N,) stance mask in
-    (step, foot) order; tail indices point at swing pairs and are masked
-    by `valid`."""
+    """Up to `cap` stance (step, foot) pairs of the (..., 4N) stance mask
+    in (step, foot) order; tail indices point at swing pairs and are
+    masked by `valid`."""
     key = torch.where(stance_flat, 0, 1)
-    order = torch.argsort(key, stable=True)
-    idx = order[:cap]
-    return idx, stance_flat[idx]
+    order = torch.argsort(key, dim=-1, stable=True)
+    idx = order[..., :cap]
+    return idx, torch.gather(stance_flat, -1, idx)
 
 
 def build_qp_reduced(cfg: Config, xref, fsteps, cap: int):
     """Support-reduced condensed QP at the stance pairs: H_r (3cap,
-    3cap), q_r (3cap), plus (Bl, h, idx, valid)."""
+    3cap), q_r (3cap), plus (Bl, h, idx, valid). xref (12, N+1) and
+    fsteps (N_gait, 12) give one problem; with a leading batch axis,
+    (B, 12, N+1) and (B, N_gait, 12), every output gains it."""
+    if xref.dim() == 2:
+        return tuple(o[0] for o in build_qp_reduced(cfg, xref[None],
+                                                    fsteps[None], cap))
     N = cfg.n_steps
     dt = cfg.dt_mpc
     dtype, dev = xref.dtype, xref.device
+    B = xref.shape[0]
     Bl, hblk, _, _, mask, p = _assemble_common(cfg, xref, fsteps)
     gait = gait_from_fsteps(fsteps, N)
-    idx, valid = support_indices(gait.reshape(4 * N) > 0, cap)
+    idx, valid = support_indices(gait.reshape(B, 4 * N) > 0, cap)
     step = idx // 4
     foot = idx % 4
-    BlS = Bl[step].reshape(cap, 6, 4, 3)[torch.arange(cap, device=dev), :,
-                                         foot, :]           # (cap, 6, 3)
+    bi = torch.arange(B, device=dev)[:, None]
+    BlS = Bl.reshape(B, N, 6, 4, 3)[bi, step, :, foot, :]  # (B, cap, 6, 3)
 
     w = torch.as_tensor(cfg.w_state, dtype=dtype, device=dev)
     wtop, wbot = w[0:6], w[6:12]
     S0, S2 = _h_coeffs(N)
-    S0g = torch.as_tensor(S0, dtype=dtype, device=dev)[step][:, step]
-    S2g = torch.as_tensor(S2, dtype=dtype, device=dev)[step][:, step]
-    M1 = torch.einsum("sai,a,tak->stik", BlS, wtop, BlS)
-    M2 = torch.einsum("sai,a,tak->stik", BlS, wbot, BlS)
-    Hblk = (dt * dt) * S2g[:, :, None, None] * M1 \
-        + S0g[:, :, None, None] * M2
-    H_r = Hblk.permute(0, 2, 1, 3).reshape(3 * cap, 3 * cap)
-    vm3 = torch.repeat_interleave(valid.to(dtype), 3)
-    H_r = H_r * vm3[:, None] * vm3[None, :]
-    H_r = H_r + torch.diag(cfg.w_force * vm3 + (1.0 - vm3))
+    S0g = torch.as_tensor(S0, dtype=dtype, device=dev)[
+        step[:, :, None], step[:, None, :]]                 # (B, cap, cap)
+    S2g = torch.as_tensor(S2, dtype=dtype, device=dev)[
+        step[:, :, None], step[:, None, :]]
+    M1 = torch.einsum("bsai,a,btak->bstik", BlS, wtop, BlS)
+    M2 = torch.einsum("bsai,a,btak->bstik", BlS, wbot, BlS)
+    Hblk = (dt * dt) * S2g[..., None, None] * M1 \
+        + S0g[..., None, None] * M2
+    H_r = Hblk.permute(0, 1, 3, 2, 4).reshape(B, 3 * cap, 3 * cap)
+    vm3 = torch.repeat_interleave(valid.to(dtype), 3, dim=1)
+    H_r = H_r * vm3[:, :, None] * vm3[:, None, :]
+    H_r = H_r + torch.diag_embed(cfg.w_force * vm3 + (1.0 - vm3))
 
-    htop_w = wtop[None, :] * hblk[:, 0:6]
-    hbot_w = wbot[None, :] * hblk[:, 6:12]
+    htop_w = wtop * hblk[..., 0:6]
+    hbot_w = wbot * hblk[..., 6:12]
     pm = mask.T * p.T.to(dtype)
-    g = (dt * (pm @ htop_w) + mask.T @ hbot_w)[step]
-    q_r = torch.einsum("sai,sa->si", BlS, g).reshape(3 * cap) * vm3
-    return H_r, q_r, Bl, hblk.reshape(12 * N), idx, valid
+    g = (dt * (pm @ htop_w) + mask.T @ hbot_w)[bi, step]   # (B, cap, 6)
+    q_r = torch.einsum("bsai,bsa->bsi", BlS, g).reshape(B, 3 * cap) * vm3
+    return H_r, q_r, Bl, hblk.reshape(B, 12 * N), idx, valid
+
+
+def recover_dx(cfg: Config, Bl, x, h):
+    """dx = G x + h without materializing G: cumulative sums over the
+    block-lower-triangular structure. Bl (..., N, 6, 12); x, h
+    (..., 12N)."""
+    N = cfg.n_steps
+    dt = cfg.dt_mpc
+    bs = tuple(x.shape[:-1])
+    s = torch.einsum("...jai,...ji->...ja", Bl, x.reshape(bs + (N, 12)))
+    cum = torch.cumsum(s, dim=-2)
+    j = torch.arange(N, dtype=x.dtype, device=x.device)[:, None]
+    cum_js = torch.cumsum(j * s, dim=-2)
+    top = dt * (j * cum - cum_js)
+    dx = torch.cat([top, cum], dim=-1) + h.reshape(bs + (N, 12))
+    return dx.reshape(bs + (12 * N,))
+
+
+class MPCWarmState(NamedTuple):
+    """Warm carry of the support-reduced batched MPC in the FULL layout,
+    valid across stance-set changes: forces (B, 12N), cone-row duals
+    (B, 20N), adapted rho (B, 1). No factorization is carried: the
+    reduced problem is refactored every call."""
+    f: torch.Tensor
+    y: torch.Tensor
+    rho: torch.Tensor
+
+
+def init_warm_state(cfg: Config, batch: int, dtype=torch.float32,
+                    device="cuda") -> MPCWarmState:
+    N = cfg.n_steps
+    kw = dict(dtype=dtype, device=device)
+    return MPCWarmState(f=torch.zeros((batch, 12 * N), **kw),
+                        y=torch.zeros((batch, 20 * N), **kw),
+                        rho=torch.full((batch, 1), 0.1, **kw))
+
+
+def shift_warm_state_reduced(state: MPCWarmState,
+                             n_steps: int) -> MPCWarmState:
+    """Advance the full-layout warm carry one MPC step (gait roll)."""
+    return state._replace(f=torch.roll(state.f, -12, dims=1),
+                          y=torch.roll(state.y, -20, dims=1))
+
+
+def reduced_constraints(cfg: Config, cap: int, batch: int, device):
+    """The support-reduced QP's constraints: the cone structure, its
+    shared matrix A = I (x) C (5cap, 3cap) and the bounds l, u
+    (batch, 5cap) of the friction pyramid and the normal-force cap."""
+    f32 = torch.float32
+    cone = qp.ReducedConeStructure(cap, cfg.mu)
+    A = torch.as_tensor(cone.matrix(), dtype=f32, device=device)
+    l = torch.tensor([-np.inf, -np.inf, -np.inf, -np.inf, -cfg.fz_max],
+                     dtype=f32, device=device).repeat(cap) \
+        .expand(batch, 5 * cap).contiguous()
+    u = torch.zeros((batch, 5 * cap), dtype=f32, device=device)
+    return cone, A, l, u
+
+
+def solve_mpc_batch_reduced(cfg: Config, xrefs, fsteps,
+                            state: Optional[MPCWarmState] = None,
+                            settings: Optional[qp.QPSettings] = None,
+                            schedule=None, tile: int = 64,
+                            shift: bool = False, cap: int = None,
+                            early_exit: bool = False):
+    """Batched MPC solve on the support-reduced QP through
+    ops/qp_pallas (kernel K2 on CUDA tensors).
+
+    xrefs (B, 12, N+1); fsteps (B, N_gait, 12); the device of xrefs is
+    where it runs. cap = stance-pair capacity (2N for a trot); problems
+    with more stance pairs are flagged in `ok`. Every call re-runs Ruiz
+    and a fresh batched Cholesky; the carry is (f, y, rho) in full
+    layout, and a warm call defaults to one 50-iteration round.
+    shift=True advances the carry one MPC step first. Returns
+    (x_f_applied (B, 24, N), new_state, sol, ok (B,))."""
+    from qrw_tpu_torch.ops import qp_pallas
+    N = cfg.n_steps
+    if cap is None:
+        cap = 2 * N
+    dtype = torch.float32
+    dev = xrefs.device
+    if settings is None:
+        settings = qp.QPSettings(
+            sigma=cfg.osqp_sigma, alpha=cfg.osqp_alpha, rho=cfg.osqp_rho,
+            eps_abs=1e-4, eps_rel=1e-4, max_iter=cfg.mpc_max_iter,
+            adaptive_rho_interval=cfg.osqp_adaptive_rho_interval,
+            adaptive_rho_tolerance=cfg.osqp_adaptive_rho_tolerance)
+    xrefs = xrefs.to(dtype)
+    fsteps = fsteps.to(dtype)
+    H_r, q_r, Bl, h, idx, valid = build_qp_reduced(cfg, xrefs, fsteps, cap)
+    B = H_r.shape[0]
+    vidx = (3 * idx[:, :, None]
+            + torch.arange(3, device=dev)).reshape(B, 3 * cap)
+    ridx = (5 * idx[:, :, None]
+            + torch.arange(5, device=dev)).reshape(B, 5 * cap)
+    vm3 = torch.repeat_interleave(valid.to(dtype), 3, dim=1)
+    rm5 = torch.repeat_interleave(valid.to(dtype), 5, dim=1)
+    ok = gait_from_fsteps(fsteps, N).reshape(B, -1).sum(dim=1) <= cap
+
+    cone, A_r, l_r, u_r = reduced_constraints(cfg, cap, B, dev)
+
+    kw = {}
+    if state is not None:
+        if shift:
+            state = shift_warm_state_reduced(state, N)
+        kw = dict(x0=torch.gather(state.f, 1, vidx) * vm3,
+                  y0=torch.gather(state.y, 1, ridx) * rm5,
+                  rho_init=state.rho)
+        if schedule is None:
+            schedule = [50]
+    sol = qp_pallas.solve(H_r, q_r, A_r, l_r, u_r, settings, tile=tile,
+                          schedule=schedule, cone=cone,
+                          early_exit=early_exit, **kw)
+
+    zeros = lambda k: torch.zeros((B, k * N), dtype=dtype, device=dev)
+    f_full = zeros(12).scatter(1, vidx, sol.x * vm3)
+    y_full = zeros(20).scatter(1, ridx, sol.y * rm5)
+    dx = recover_dx(cfg, Bl, f_full, h)
+    states = dx.reshape(B, N, 12).transpose(1, 2) + xrefs[:, :, 1:N + 1]
+    forces = f_full.reshape(B, N, 12).transpose(1, 2)
+    x_f = torch.cat([states, forces], dim=1)               # (B, 24, N)
+    return x_f, MPCWarmState(f=f_full, y=y_full, rho=sol.rho), sol, ok

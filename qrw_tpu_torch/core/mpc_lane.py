@@ -3,9 +3,9 @@
 Port of qrw_tpu/core/mpc_lane.py: problem assembly, the cyclic phase
 sets of the steady gaits, the host-built phase structure (metric
 inverses in float64), the warm carry with its gait-roll shift, the
-support guard, the stale-plan fallback and `solve_mpc_batch_phase`.
-The capacity-bounded rescue stage (rescue_cap > 0) is not ported yet and
-raises NotImplementedError.
+support guard, the capacity-bounded rescue stage (core/mpc's
+support-reduced solver, kernel K2 on the card), the stale-plan fallback
+and `solve_mpc_batch_phase`.
 
 The batch must be PHASE-SORTED: each `tile` of consecutive problems
 shares one stance support (one phase class).
@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.ops import qp, qp_phase
 
 f32 = torch.float32
@@ -152,7 +152,7 @@ def build_phase_data(cfg: Config, phase_fsteps: np.ndarray,
                      diag_margin: float = 0.0, sigma: float = 1e-6,
                      alpha: float = 1.0, cap: int = None,
                      nominal_vx: float = 0.5,
-                     device="cpu") -> PhaseStructure:
+                     device="cuda") -> PhaseStructure:
     """Shared solver data for a set of support phases. The proximal
     metric Kbar_p = margin c Hbar_p + diag_margin c I + sigma I
     + rho A'A is built from the float32 nominal problem and inverted once
@@ -229,14 +229,15 @@ def build_phase_data(cfg: Config, phase_fsteps: np.ndarray,
 
 class MPCLaneState(NamedTuple):
     """Warm carry in the full (step, foot) layout, lane-major. rrho is
-    the rescue stage's per-lane rho (carried unchanged while the rescue
-    stage is not ported)."""
+    the rescue stage's adapted per-lane rho (osqp keeps its workspace
+    rho between solves): a lane that needs the rescue again re-enters it
+    at that rho."""
     f: torch.Tensor          # (4N, 3, B) forces
     y: torch.Tensor          # (4N, 5, B) cone-row duals
     rrho: Optional[torch.Tensor] = None   # (B,)
 
 
-def init_lane_state(cfg: Config, batch: int, device="cpu") -> MPCLaneState:
+def init_lane_state(cfg: Config, batch: int, device="cuda") -> MPCLaneState:
     N4 = 4 * cfg.n_steps
     return MPCLaneState(
         f=torch.zeros((N4, 3, batch), dtype=f32, device=device),
@@ -295,21 +296,108 @@ def phase_problem(cfg: Config, xrefs, fsteps, ps: PhaseStructure,
     return Bl, hblk, gait, BlS, q_r, oh2_t
 
 
+def default_rescue_settings() -> qp.QPSettings:
+    """The rescue stage's solver settings: OSQP tolerances 1e-4, 450
+    iterations, 4 Ruiz passes."""
+    return qp.QPSettings(eps_abs=1e-4, eps_rel=1e-4, max_iter=450,
+                         adaptive_rho_interval=200, scaling_iters=4)
+
+
+def _rescue_failed_lanes(cfg: Config, xrefs, fsteps, f_full, y_full, sol,
+                         rescue_cap: int, rescue_settings=None,
+                         c_scale: float = 1.0, qp_cap: int = None,
+                         warm_state: Optional[MPCLaneState] = None):
+    """Second stage: re-solve up to rescue_cap lanes that failed the
+    phase solve through the per-problem support-reduced path
+    (core/mpc.solve_mpc_batch_reduced). Returns the patched
+    (f_full, y_full, sol, rrho) with rescued lanes marked converged and
+    `sol.rescued` the number of failed lanes the stage re-solved (0 when
+    it did not run).
+
+    Lanes are taken in a stable rank order: failed lanes with a live
+    carry, then cold-restart lanes, then converged padding, which is
+    masked out of the patch. With `warm_state` (the SHIFTED lane carry)
+    each lane warm-starts from its stale rolled plan at its carried rho,
+    with the [50, 150, 150, 100] schedule and the early exit, so a
+    first-round convergence costs one 50-iteration round. The stage runs
+    only on cycles with failures: one host read a cycle decides."""
+    from qrw_tpu_torch.core import mpc as mpc_mod
+    N = cfg.n_steps
+    B = xrefs.shape[-1]
+    dev = xrefs.device
+    R = min(rescue_cap, B)
+    if rescue_settings is None:
+        rescue_settings = default_rescue_settings()
+    bad = ~sol.converged
+    rrho = (warm_state.rrho if warm_state is not None
+            and warm_state.rrho is not None
+            else torch.full((B,), rescue_settings.rho, dtype=f32,
+                            device=dev))
+    if not bool(bad.any()):
+        return f_full, y_full, sol._replace(
+            rescued=torch.zeros((), dtype=torch.int64, device=dev)), rrho
+
+    if warm_state is not None:
+        has_carry = torch.any(warm_state.f.abs() > 0.0, dim=1).any(dim=0)
+        rank = torch.where(bad & has_carry, 0, torch.where(bad, 1, 2))
+    else:
+        rank = torch.where(bad, 0, 1)
+    order = torch.argsort(rank, stable=True)[:R]
+    sel_bad = bad[order]                                   # (R,)
+    xb = xrefs.to(f32)[:, :, order].permute(2, 0, 1)       # (R, 12, N+1)
+    fb = fsteps.to(f32)[:, :, order].permute(2, 0, 1)
+    wkw = {}
+    if warm_state is not None:
+        # stale rolled plan -> reduced-path warm start; the duals back to
+        # physical units (y_phase = c_scale * y_physical)
+        f_w = warm_state.f[:, :, order].permute(2, 0, 1).reshape(R, 12 * N)
+        y_w = warm_state.y[:, :, order].permute(2, 0, 1) \
+            .reshape(R, 20 * N) / c_scale
+        mi = rescue_settings.max_iter
+        sched = [min(50, mi)]
+        while sum(sched) < mi:
+            sched.append(min(max(100, mi // 3), mi - sum(sched)))
+        wkw = dict(state=mpc_mod.MPCWarmState(f=f_w, y=y_w,
+                                              rho=rrho[order, None]),
+                   schedule=sched, early_exit=True)
+    _, st_r, sol_r, ok_r = mpc_mod.solve_mpc_batch_reduced(
+        cfg, xb, fb, settings=rescue_settings, tile=min(R, 64),
+        cap=(2 * N if qp_cap is None else qp_cap), **wkw)
+    good = (sel_bad & sol_r.converged & ok_r)[None, None, :]
+    f_r = st_r.f.reshape(R, 4 * N, 3).permute(1, 2, 0)
+    # back to the phase solver's c-scaled duals
+    y_r = c_scale * st_r.y.reshape(R, 4 * N, 5).permute(1, 2, 0)
+    f_full = f_full.clone()
+    y_full = y_full.clone()
+    f_full[:, :, order] = torch.where(good, f_r, f_full[:, :, order])
+    y_full[:, :, order] = torch.where(good, y_r, y_full[:, :, order])
+    conv = sol.converged.clone()
+    conv[order] = conv[order] | good[0, 0]
+    rrho = rrho.clone()
+    rrho[order] = torch.where(sel_bad, sol_r.rho[:, 0], rrho[order])
+    return f_full, y_full, sol._replace(converged=conv,
+                                        rescued=sel_bad.sum()), rrho
+
+
 def solve_mpc_batch_phase(cfg: Config, xrefs, fsteps, ps: PhaseStructure,
                           phases_of, state: Optional[MPCLaneState] = None,
                           n_iters: int = None, shift: bool = False,
                           eps_abs: float = 1e-4, eps_rel: float = 1e-4,
                           tile: int = 128, rescue_cap: int = 0,
+                          rescue_settings: Optional[qp.QPSettings] = None,
                           stop_at_eps: bool = False):
     """Batched MPC solve over a phase-sorted lane-major batch.
 
     xrefs (12, N+1, B); fsteps (N_gait, 12, B); phases_of (B // tile,)
     phase of each tile. Returns (x_f (24, N, B), new_state,
     PhaseQPResult). The solve runs through qp_phase.solve: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    if rescue_cap:
-        raise NotImplementedError(
-            "the rescue stage (rescue_cap > 0) is not ported yet")
+    kernel for CUDA tensors, the plain version for CPU tensors.
+
+    rescue_cap > 0 enables the second stage: up to rescue_cap lanes that
+    failed the phase solve (divergence under the shared metric, or a
+    support outside the phase set) are re-solved per problem
+    (_rescue_failed_lanes, kernel K2 on the card); lanes beyond the
+    capacity, or failing both stages, ship the stale plan."""
     N = cfg.n_steps
     cap = ps.cap
     d = ps.data
@@ -353,6 +441,11 @@ def solve_mpc_batch_phase(cfg: Config, xrefs, fsteps, ps: PhaseStructure,
 
     rrho_out = (state.rrho if state is not None and state.rrho is not None
                 else torch.full((B,), 0.1, dtype=f32, device=xrefs.device))
+    if rescue_cap:
+        f_full, y_full, sol, rrho_out = _rescue_failed_lanes(
+            cfg, xrefs, fsteps, f_full, y_full, sol, rescue_cap,
+            rescue_settings, c_scale=d.c_scale, qp_cap=cap,
+            warm_state=state)
 
     # A failed lane ships its stale (rolled) plan and restarts cold.
     cv = sol.converged[None, None, :]

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.wbc import (WBCResult, WBCState, base_inertia_diag,
                                     friction_generators)
 from qrw_tpu_torch.ops import rbd_lane as rl

@@ -1,0 +1,257 @@
+// Fixed-length OSQP ADMM in the original variables, one problem a block.
+//
+// Replaces the TPU kernel qrw_tpu/ops/qp_pallas.py::_admm_kernel (Pallas,
+// launched by qrw_tpu.ops.qp_pallas._run_kernel), without its K_ref
+// (iterative refinement) variant. Per problem, with a per-problem
+// symmetric K^-1 (n x n), a constraint matrix A (m x n) shared by the
+// batch, the diagonal rho' and sigma' and relaxation alpha, exactly
+// `n_iters` steps of
+//
+//   b  = sigma' x - q + A'(rho' z - y)
+//   xt = K^-1 b;  zt = A xt
+//   x  = alpha xt + (1 - alpha) x;  zr = alpha zt + (1 - alpha) z
+//   z  = clip(zr + y * (1 / rho'), l, u);  y = y + rho' (zr - z)
+//
+// from z = A x0, then one residual pass giving the infinity norms
+// pri = |A x - z|, dua = |P x + q + A'y|, n1 = max(|A x|, |z|) and
+// n2 = max(|P x|, |A'y|). The wrapper (qrw_tpu_torch/ops/qp_pallas.py)
+// applies the termination test and the rho adaptation between rounds.
+//
+// What bounds it on the H100: operations. A problem-iteration is three
+// dense products (A'w and A xt, 2mn flop each, K^-1 b, 2n^2) and a few
+// elementwise passes: ~82 kflop at the rescue's n = 96, m = 160, against
+// K^-1 and P (36.9 kB each) and A (61.4 kB, shared) read once a round.
+// At R = 32 problems and 50 iterations that is 131 Mflop, ~2 us at the
+// card's 67 Tflop/s of float32, and 2.5 MB, ~0.75 us at 3.35 TB/s. In
+// practice it is latency-bound: each iteration is a chain of four
+// dependent phases separated by block barriers, and R = 32 blocks leave
+// most of the 132 SMs idle.
+//
+// What this first design does about it:
+// * One block per problem, so any batch works with no padding. The block
+//   stages K^-1 and A in dynamic shared memory once (36.9 + 62.1 kB at the
+//   rescue shape) and keeps every vector (x, z, y, l, u, rho', 1/rho',
+//   sigma', q, b, xt, w) in shared memory too: nothing but the final
+//   iterate and the four norms goes back to device memory.
+// * A is stored with a padded row stride n + 1. The row-wise products
+//   (z = A xt, thread r walks row r) then touch banks (r + j) mod 32, all
+//   different within a warp; with a stride of n = 96 they would all hit
+//   one bank. The column-wise products (A'w, K^-1 b with K^-1 symmetric:
+//   thread j walks column j) read neighbouring words across a warp.
+// * Exact semantics: l = -inf on four of every five rescue rows stays
+//   -inf through the clip (fmaxf(v, -INFINITY) == v), NaN propagates
+//   through the clip and the norms as it does in jnp.clip / jnp.max,
+//   1 / rho' is a reciprocal computed once and then multiplied, and the
+//   kernel runs every problem, converged or not: the wrapper keeps the
+//   converged flags sticky. Float32 throughout, no fast-math.
+// The full-size shape (n = 192, m = 512) does not fit a block's shared
+// memory this way; the wrapper refuses it.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+struct Params {
+  int B, n, m, n_iters;
+  float alpha;
+};
+
+// max that propagates NaN from either side (as jnp.max / torch.amax)
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+// clip(v, lo, hi) = min(max(v, lo), hi), with NaN passing through
+__device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
+  return (v != v) ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// NaN-propagating max over the block; `red` holds >= 32 floats. Every
+// thread gets the result.
+__device__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();  // red may still be read by a previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < n_warps; ++w) r = nan_max(r, red[w]);
+  return r;
+}
+
+__global__ void qp_admm_kernel(Params p, const float* __restrict__ kinv_g,
+                               const float* __restrict__ P_g,
+                               const float* __restrict__ A_g,
+                               const float* __restrict__ q_g,
+                               const float* __restrict__ l_g,
+                               const float* __restrict__ u_g,
+                               const float* __restrict__ rho_g,
+                               const float* __restrict__ sig_g,
+                               const float* __restrict__ x0_g,
+                               const float* __restrict__ y0_g,
+                               float* __restrict__ X, float* __restrict__ Y,
+                               float* __restrict__ Z,
+                               float* __restrict__ res) {
+  extern __shared__ float smem[];
+  const int n = p.n, m = p.m, lda = n + 1;
+  float* K = smem;               // n * n, K^-1 (symmetric)
+  float* As = K + n * n;         // m * lda, A with a padded row stride
+  float* xs = As + m * lda;      // n
+  float* qs = xs + n;            // n
+  float* ss = qs + n;            // n, sigma'
+  float* bs = ss + n;            // n, right-hand side b
+  float* xt = bs + n;            // n
+  float* zs = xt + n;            // m
+  float* ys = zs + m;            // m
+  float* ls = ys + m;            // m
+  float* us = ls + m;            // m
+  float* rs = us + m;            // m, rho'
+  float* ri = rs + m;            // m, 1 / rho'
+  float* ws = ri + m;            // m, rho' z - y
+  float* red = ws + m;           // 32, block reductions
+
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float alpha = p.alpha, beta = 1.0f - p.alpha;
+
+  const float* kinv = kinv_g + b * n * n;
+  for (int i = tid; i < n * n; i += nt) K[i] = kinv[i];
+  for (int i = tid; i < m * n; i += nt) {
+    const int r = i / n, c = i - r * n;
+    As[r * lda + c] = A_g[i];
+  }
+  for (int j = tid; j < n; j += nt) {
+    xs[j] = x0_g[b * n + j];
+    qs[j] = q_g[b * n + j];
+    ss[j] = sig_g[b * n + j];
+  }
+  for (int r = tid; r < m; r += nt) {
+    ys[r] = y0_g[b * m + r];
+    ls[r] = l_g[b * m + r];
+    us[r] = u_g[b * m + r];
+    rs[r] = rho_g[b * m + r];
+    ri[r] = 1.0f / rs[r];
+  }
+  __syncthreads();
+
+  for (int r = tid; r < m; r += nt) {          // z = A x0
+    const float* a = As + r * lda;
+    float acc = 0.f;
+    for (int j = 0; j < n; ++j) acc += a[j] * xs[j];
+    zs[r] = acc;
+  }
+  __syncthreads();
+
+  for (int it = 0; it < p.n_iters; ++it) {
+    for (int r = tid; r < m; r += nt) ws[r] = rs[r] * zs[r] - ys[r];
+    __syncthreads();
+    for (int j = tid; j < n; j += nt) {        // b = sigma' x - q + A'w
+      float acc = 0.f;
+      for (int r = 0; r < m; ++r) acc += As[r * lda + j] * ws[r];
+      bs[j] = (ss[j] * xs[j] - qs[j]) + acc;
+    }
+    __syncthreads();
+    for (int j = tid; j < n; j += nt) {        // xt = K^-1 b, column j
+      float acc = 0.f;
+      for (int i = 0; i < n; ++i) acc += K[i * n + j] * bs[i];
+      xt[j] = acc;
+    }
+    __syncthreads();
+    for (int r = tid; r < m; r += nt) {        // zt = A xt; z, y updates
+      const float* a = As + r * lda;
+      float acc = 0.f;
+      for (int j = 0; j < n; ++j) acc += a[j] * xt[j];
+      const float zr = alpha * acc + beta * zs[r];
+      const float y = ys[r];
+      const float zn = clip_nan(zr + y * ri[r], ls[r], us[r]);
+      ys[r] = y + rs[r] * (zr - zn);
+      zs[r] = zn;
+    }
+    for (int j = tid; j < n; j += nt) xs[j] = alpha * xt[j] + beta * xs[j];
+    __syncthreads();
+  }
+
+  // residual pass: A x and its norms (rows), P x and A'y (columns)
+  float pri = 0.f, nax = 0.f, nz = 0.f;
+  for (int r = tid; r < m; r += nt) {
+    const float* a = As + r * lda;
+    float acc = 0.f;
+    for (int j = 0; j < n; ++j) acc += a[j] * xs[j];
+    pri = nan_max(pri, fabsf(acc - zs[r]));
+    nax = nan_max(nax, fabsf(acc));
+    nz = nan_max(nz, fabsf(zs[r]));
+    Y[b * m + r] = ys[r];
+    Z[b * m + r] = zs[r];
+  }
+  float dua = 0.f, npx = 0.f, naty = 0.f;
+  const float* P = P_g + b * n * n;
+  for (int j = tid; j < n; j += nt) {
+    float aty = 0.f, px = 0.f;
+    for (int r = 0; r < m; ++r) aty += As[r * lda + j] * ys[r];
+    for (int i = 0; i < n; ++i) px += P[(size_t)i * n + j] * xs[i];
+    dua = nan_max(dua, fabsf((px + qs[j]) + aty));
+    npx = nan_max(npx, fabsf(px));
+    naty = nan_max(naty, fabsf(aty));
+    X[b * n + j] = xs[j];
+  }
+  pri = block_max(pri, red);
+  dua = block_max(dua, red);
+  const float n1 = nan_max(block_max(nax, red), block_max(nz, red));
+  const float n2 = nan_max(block_max(npx, red), block_max(naty, red));
+  if (tid == 0) {
+    res[b] = pri;
+    res[p.B + b] = dua;
+    res[2 * (size_t)p.B + b] = n1;
+    res[3 * (size_t)p.B + b] = n2;
+  }
+}
+
+size_t smem_bytes(int n, int m) {
+  const size_t nn = n, mm = m;
+  return sizeof(float) * (nn * nn + mm * (nn + 1) + 5 * nn + 7 * mm + 32);
+}
+
+int block_threads(int n, int m) {
+  const int w = n > m ? n : m;
+  const int t = ((w + 31) / 32) * 32;
+  return t > 1024 ? 1024 : t;
+}
+
+}  // namespace
+
+extern "C" {
+
+int qrw_qp_admm_smem_bytes(int n, int m) { return (int)smem_bytes(n, m); }
+
+int qrw_qp_admm_max_smem_bytes() {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return v;
+}
+
+// All pointers are device pointers: Kinv, P (B, n, n); A (m, n); q, sig,
+// x0, x (B, n); l, u, rho, y0, y, z (B, m); res (4, B) rows pri, dua, n1,
+// n2. Launches on `stream` and returns cudaGetLastError().
+int qrw_qp_admm_solve(const float* kinv, const float* P, const float* A,
+                      const float* q, const float* l, const float* u,
+                      const float* rho, const float* sig, const float* x0,
+                      const float* y0, float* x, float* y, float* z,
+                      float* res, int B, int n, int m, int n_iters,
+                      float alpha, void* stream) {
+  Params p;
+  p.B = B; p.n = n; p.m = m; p.n_iters = n_iters; p.alpha = alpha;
+  const size_t smem = smem_bytes(n, m);
+  cudaError_t e = cudaFuncSetAttribute(
+      qp_admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  qp_admm_kernel<<<B, block_threads(n, m), smem, (cudaStream_t)stream>>>(
+      p, kinv, P, A, q, l, u, rho, sig, x0, y0, x, y, z, res);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

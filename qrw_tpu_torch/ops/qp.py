@@ -1,9 +1,10 @@
-"""QP solver settings, the support-reduced cone structure and Ruiz
-equilibration.
+"""QP solver settings, the OSQP rho classes, the cone structures and
+Ruiz equilibration.
 
-Partial port of qrw_tpu/ops/qp.py (qp.py:75-188): what
-core/mpc_lane.build_phase_data needs on the host. The OSQP-semantics
-ADMM `solve` serves the rescue stage and is not ported yet.
+Partial port of qrw_tpu/ops/qp.py (qp.py:36-188): what
+core/mpc_lane.build_phase_data and the rescue stage's solver
+(ops/qp_pallas) need. The XLA-style per-problem ADMM loop `solve` is on
+neither path and is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,8 +14,38 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-MIN_SCALING = 1e-4
+RHO_MIN = 1e-6
+RHO_MAX = 1e6
+RHO_EQ_SCALE = 1e3       # osqp RHO_EQ_OVER_RHO_INEQ
+LOOSE_BOUND = 1e18
+MIN_SCALING = 1e-4       # osqp MIN_SCALING
 MAX_SCALING = 1e4
+
+
+class ConeStructure(NamedTuple):
+    """The full MPC cone matrix A = [F; I] (core/mpc.cone_matrix): F is
+    block-diagonal with the 5x3 friction block C per (step, foot), I the
+    12N activation identity."""
+    n_steps: int
+    mu: float
+
+    @property
+    def n(self) -> int:
+        return 12 * self.n_steps
+
+    @property
+    def m(self) -> int:
+        return 32 * self.n_steps
+
+    def cone_rows(self) -> np.ndarray:
+        """(5, 3) block C (src/MPC.cpp:135-146)."""
+        return np.array([
+            [1.0, 0.0, -self.mu],
+            [-1.0, 0.0, -self.mu],
+            [0.0, 1.0, -self.mu],
+            [0.0, -1.0, -self.mu],
+            [0.0, 0.0, -1.0],
+        ])
 
 
 class ReducedConeStructure(NamedTuple):
@@ -56,6 +87,26 @@ class QPSettings(NamedTuple):
     adaptive_rho_interval: int = 200
     adaptive_rho_tolerance: float = 5.0
     scaling_iters: int = 10
+
+
+class QPSolution(NamedTuple):
+    x: torch.Tensor          # (..., n) primal solution
+    y: torch.Tensor          # (..., m) dual solution
+    z: torch.Tensor          # (..., m) projected constraint value
+    iters: torch.Tensor      # (...,) iterations executed
+    pri_res: torch.Tensor    # (...,) final primal residual (inf-norm)
+    dua_res: torch.Tensor    # (...,) final dual residual (inf-norm)
+    converged: torch.Tensor  # (...,) bool
+
+
+def rho_vec_for_bounds(l, u, rho):
+    """Per-row rho classes as osqp's set_rho_vec: loose rows get
+    RHO_MIN, equality rows rho * 1e3, plain inequalities rho."""
+    loose = (l < -LOOSE_BOUND) & (u > LOOSE_BOUND)
+    eq = (u - l) < 1e-10
+    rho = torch.as_tensor(rho, dtype=l.dtype, device=l.device)
+    return torch.where(loose, torch.full_like(l, RHO_MIN),
+                       torch.where(eq, RHO_EQ_SCALE * rho, rho))
 
 
 def _limit(s):

@@ -26,7 +26,7 @@ never falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -71,6 +71,9 @@ class PhaseQPResult(NamedTuple):
     dua_res: torch.Tensor    # (B,)
     converged: torch.Tensor  # (B,) bool
     iters: torch.Tensor      # (B,) int32
+    # () failed lanes that core/mpc_lane's rescue stage re-solved (None
+    # when the stage is off)
+    rescued: Optional[torch.Tensor] = None
 
 
 def a_apply(x, cap, mu):

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from qrw_tpu.models.solo12 import Solo12Model
+from qrw_tpu_torch.models.solo12 import Solo12Model
 from qrw_tpu_torch.ops.rotations import quat_to_rot
 
 

@@ -203,7 +203,7 @@ def solo12_lane() -> LaneModel:
     """The Solo-12 LaneModel (cached)."""
     global _SOLO12_LANE
     if _SOLO12_LANE is None:
-        from qrw_tpu.models.solo12 import make_solo12
+        from qrw_tpu_torch.models.solo12 import make_solo12
         from qrw_tpu_torch.ops.rbd import to_torch
         _SOLO12_LANE = to_lane(to_torch(make_solo12()))
     return _SOLO12_LANE

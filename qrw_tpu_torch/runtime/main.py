@@ -2,13 +2,15 @@
 
 Port of the `--fleet` mode of qrw_tpu/runtime/main.py. B robots walk
 the trot in closed loop; every 50 Hz cycle their MPC problems are
-solved in ONE batched phase-solver launch (the CUDA kernel of
-ops/qp_phase on the card).
+solved in ONE batched phase-solver launch (the CUDA kernel K1 of
+ops/qp_phase on the card), and the lanes that fail it are re-solved by
+the rescue stage (kernel K2 of ops/qp_pallas), whose capacity defaults
+to max(4, B // 32) lanes as in the JAX entry point.
 
-    python -m qrw_tpu_torch.runtime.main --fleet 1024 --rescue 0
+    python -m qrw_tpu_torch.runtime.main --fleet 1024
 
-Only `--fleet` with `--rescue 0` is ported; every other mode of the JAX
-entry point exits with "not yet ported".
+Only `--fleet` is ported; every other mode of the JAX entry point exits
+with "not yet ported".
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--fleet", type=int, default=0, metavar="B",
                    help="closed-loop fleet of B robots (rounded down to a "
                         "multiple of the 128-robot solver tile)")
-    p.add_argument("--rescue", type=int, default=0,
-                   help="rescue-stage capacity (only 0 is ported)")
+    p.add_argument("--rescue", type=int, default=None,
+                   help="rescue-stage capacity in lanes (default "
+                        "max(4, B // 32); 0 turns the stage off)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device of the fleet (default cuda)")
@@ -43,8 +46,14 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+def rescue_capacity(rescue, batch: int) -> int:
+    """The `--rescue` value, or the JAX entry point's default
+    max(4, B // 32) when it is not given."""
+    return max(4, batch // 32) if rescue is None else rescue
+
+
 def run_fleet(cfg, batch: int, tile: int, seed: int, device: str,
-              n_cycles: int, rescue: int = 0):
+              n_cycles: int, rescue: int):
     """Build and run the fleet once; returns (carry, logs, cycle logs,
     wall seconds) with the device synchronized."""
     import torch
@@ -74,8 +83,7 @@ def main(argv=None) -> int:
         ("--sweep", args.sweep), ("--estimator-demo", args.estimator_demo),
         ("--kf", args.kf), ("--ddp", args.ddp), ("--bumpy", args.bumpy),
         ("--mesh", args.mesh), ("--f64", args.f64), ("--cpu", args.cpu),
-        ("--envID", args.envID not in (None, 0)),
-        ("--rescue > 0", args.rescue)] if on]
+        ("--envID", args.envID not in (None, 0))] if on]
     if not args.fleet:
         unported.append("single-robot rollout (no --fleet)")
     if unported:
@@ -84,7 +92,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from qrw_tpu.config import load_config
+    from qrw_tpu_torch.config import load_config
     overrides = {}
     if args.velID is not None:
         overrides["velID"] = args.velID
@@ -93,16 +101,19 @@ def main(argv=None) -> int:
     cfg = load_config(None, **overrides)
     n_cycles = max(1, cfg.N_SIMULATION // cfg.k_mpc)
     B = max(TILE, (args.fleet // TILE) * TILE)
+    rescue = rescue_capacity(args.rescue, B)
     carry, logs, cyc, wall = run_fleet(cfg, B, TILE, args.seed, args.device,
-                                       n_cycles, args.rescue)
+                                       n_cycles, rescue)
     n_ticks = n_cycles * cfg.k_mpc
     h = logs.base_pos[:, :, 2].cpu().numpy()
     err = logs.error.cpu().numpy()
     conv = cyc.converged.cpu().numpy()
+    fired = int((cyc.rescued > 0).sum())
     print(f"fleet: {B} robots x {n_ticks} ticks in {wall:.2f}s on "
           f"{args.device} ({B * n_ticks / wall:.0f} ticks/s aggregate, "
           f"{B * n_cycles / wall:.0f} in-loop MPC solves/s); MPC conv "
-          f"{conv.mean():.4f} (no rescue); errors {int(err[-1].sum())}/{B}; "
+          f"{conv.mean():.4f} (rescue cap {rescue}, fired in {fired} of "
+          f"{n_cycles} cycles); errors {int(err[-1].sum())}/{B}; "
           f"final height mean {h[-1].mean():.4f} min {h[-1].min():.4f}"
           f"{'' if np.isfinite(h).all() else ' NON-FINITE'}")
     return 0 if not err[-1].any() else 1

@@ -12,18 +12,19 @@ cycle (k_mpc = 10 ticks):
   ticks +1..+9: the same without the solve, consuming the held plan.
 
 On CUDA tensors the solve runs the hand-written kernel of ops/qp_phase;
-on CPU tensors its plain version. Failed lanes take the stale-plan
-fallback with a cold-restart carry. The rescue stage (rescue_cap > 0)
-is not ported yet and raises NotImplementedError.
+on CPU tensors its plain version. Failed lanes follow the layered
+fallback of core/mpc_lane: the capacity-bounded rescue stage
+(rescue_cap > 0; kernel K2 of ops/qp_pallas on the card) on cycles with
+failures, then the stale-plan fallback with a cold-restart carry.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.convert import tree_map
 from qrw_tpu_torch.core import mpc_lane as ml
 from qrw_tpu_torch.core.controller import (Controller, ControllerState,
@@ -61,6 +62,8 @@ class FleetCycleLog(NamedTuple):
     converged: torch.Tensor         # (C, B)
     iters: torch.Tensor             # (C, B)
     phase: torch.Tensor             # (C, B // tile)
+    # (C,) failed lanes the rescue stage re-solved (0: it did not run)
+    rescued: Optional[torch.Tensor] = None
 
 
 def _device_from_sim(ss: SimState) -> DeviceData:
@@ -126,34 +129,51 @@ def make_fleet(cfg: Config, batch: int, ps: ml.PhaseStructure,
 def fleet_rollout(ctl: Controller, carry: FleetCarry, n_cycles: int,
                   ps: ml.PhaseStructure, tile: int = 128,
                   n_iters: int = 300, rescue_cap: int = 0,
-                  perfect_estimator: bool = True, stop_at_eps: bool = True
-                  ) -> Tuple[FleetCarry, FleetLog, FleetCycleLog]:
-    """Run `n_cycles` MPC cycles (n_cycles * k_mpc ticks) of the fleet on
-    the cfg.velID velocity profile. Returns (carry, FleetLog,
-    FleetCycleLog); resumable: call again with the returned carry.
+                  v_ref_schedule=None, f_ext_schedule=None,
+                  perfect_estimator: bool = True, with_logs: bool = True,
+                  stop_at_eps: bool = True
+                  ) -> Tuple[FleetCarry, Optional[FleetLog], FleetCycleLog]:
+    """Run `n_cycles` MPC cycles (n_cycles * k_mpc ticks) of the fleet.
+    Returns (carry, FleetLog or None, FleetCycleLog); resumable: call
+    again with the returned carry.
 
-    Not ported yet: the rescue stage (rescue_cap > 0 raises), per-robot
-    command / external-force schedules, terrain and the heterogeneous
-    fleet's per-tile phase ranges."""
-    if rescue_cap:
-        raise NotImplementedError(
-            "the rescue stage (rescue_cap > 0) is not ported yet")
+    v_ref_schedule: optional (n_ticks, 6) shared or (n_ticks, B, 6)
+    per-robot commands (default: the cfg.velID profile).
+    f_ext_schedule: optional (n_ticks, B, 3) world-frame base forces.
+    rescue_cap: capacity of the rescue stage (0: off).
+    Not ported yet: terrain and the heterogeneous fleet's per-tile phase
+    ranges."""
     cfg = ctl.cfg
     k_mpc = cfg.k_mpc
     B = carry.lane_state.f.shape[-1]
+    n_ticks = n_cycles * k_mpc
     P = ps.data.Kbar_inv.shape[0]
     dtype = carry.sim_states.q.dtype
+    dev_t = carry.sim_states.q.device
     lane_model = rl.solo12_lane()
     cycle0 = int(carry.cycle)
+    if v_ref_schedule is not None:
+        v_ref_schedule = torch.as_tensor(v_ref_schedule, dtype=dtype,
+                                         device=dev_t)
+        if v_ref_schedule.dim() == 2:
+            v_ref_schedule = v_ref_schedule[:, None, :].expand(n_ticks, B, 6)
+        if tuple(v_ref_schedule.shape) != (n_ticks, B, 6):
+            raise ValueError(f"v_ref_schedule must be ({n_ticks}, 6) or "
+                             f"({n_ticks}, {B}, 6)")
+    if f_ext_schedule is not None:
+        f_ext_schedule = torch.as_tensor(f_ext_schedule, dtype=dtype,
+                                         device=dev_t)
+        if tuple(f_ext_schedule.shape) != (n_ticks, B, 3):
+            raise ValueError(f"f_ext_schedule must be ({n_ticks}, {B}, 3)")
 
-    def pre_tick(cs, dev, k):
+    def pre_tick(cs, dev, k, v_ref6):
         """compute_pre with the estimator FK hoisted lane-major."""
         qm = dev.q_mes.reshape(B, 4, 3).permute(1, 2, 0)
         vm = dev.v_mes.reshape(B, 4, 3).permute(1, 2, 0)
         kin = rl.frame_kinematics(lane_model, rl.ZV3, rl.EYE3, qm, None, vm)
         pos = torch.stack([p.T for p in kin.pos], dim=2)
         vel = torch.stack([p.T for p in kin.vel], dim=2)
-        return compute_pre(ctl, cs, dev, k, None, 0, perfect_estimator,
+        return compute_pre(ctl, cs, dev, k, v_ref6, 0, perfect_estimator,
                            est_fk=(pos, vel))
 
     def post_tick(cs, pre, x_f_b, k):
@@ -164,9 +184,9 @@ def fleet_rollout(ctl: Controller, carry: FleetCarry, n_cycles: int,
         return compute_post(ctl, cs, pre, k, x_f_b, x_f_b, cs.mpc,
                             cs.planner_target, wbc_res=wbc_b)
 
-    def sim_tick(ss, res):
+    def sim_tick(ss, res, f_ext):
         return step_lane(cfg, lane_model, ss, res.P, res.D, res.q_des,
-                         res.v_des, res.tau_ff)
+                         res.v_des, res.tau_ff, f_ext=f_ext)
 
     cs, ss, dev = carry.ctl_states, carry.sim_states, carry.devices
     lane_st, phases = carry.lane_state, carry.tile_phase
@@ -175,30 +195,37 @@ def fleet_rollout(ctl: Controller, carry: FleetCarry, n_cycles: int,
         k0 = (cycle0 + ci) * k_mpc
         for dk in range(k_mpc):
             k = k0 + dk
-            pre = pre_tick(cs, dev, k)
+            t = ci * k_mpc + dk
+            pre = pre_tick(cs, dev, k, None if v_ref_schedule is None
+                           else v_ref_schedule[t])
             if dk == 0:
                 # the solve tick: ONE batched MPC for the whole fleet
                 xr_l = pre.xref.to(torch.float32).permute(1, 2, 0)
                 fs_l = pre.fsteps.to(torch.float32).permute(1, 2, 0)
                 x_f_l, lane_st, sol = ml.solve_mpc_batch_phase(
                     cfg, xr_l, fs_l, ps, phases, state=lane_st, shift=True,
-                    n_iters=n_iters, tile=tile, stop_at_eps=stop_at_eps)
+                    n_iters=n_iters, tile=tile, rescue_cap=rescue_cap,
+                    stop_at_eps=stop_at_eps)
                 x_f_b = x_f_l.permute(2, 0, 1).to(dtype)
-                cyc_logs.append(FleetCycleLog(converged=sol.converged,
-                                              iters=sol.iters,
-                                              phase=phases))
+                rescued = (sol.rescued if sol.rescued is not None else
+                           torch.zeros((), dtype=torch.int64, device=dev_t))
+                cyc_logs.append(FleetCycleLog(
+                    converged=sol.converged, iters=sol.iters, phase=phases,
+                    rescued=rescued))
             else:
                 x_f_b = cs.x_f_mpc
             cs, res = post_tick(cs, pre, x_f_b, k)
-            ss, dev = sim_tick(ss, res)
-            logs.append(FleetLog(base_pos=ss.q[:, 0:3],
-                                 base_quat=ss.q[:, 3:7],
-                                 f_mpc=x_f_b[:, 12:, 0], tau_ff=res.tau_ff,
-                                 error=cs.error))
+            ss, dev = sim_tick(ss, res, None if f_ext_schedule is None
+                               else f_ext_schedule[t])
+            if with_logs:
+                logs.append(FleetLog(base_pos=ss.q[:, 0:3],
+                                     base_quat=ss.q[:, 3:7],
+                                     f_mpc=x_f_b[:, 12:, 0],
+                                     tau_ff=res.tau_ff, error=cs.error))
         phases = (phases - 1) % P
 
     stack = lambda items: tree_map(lambda *xs: torch.stack(xs), *items)
     carry2 = FleetCarry(ctl_states=cs, sim_states=ss, devices=dev,
                         lane_state=lane_st, tile_phase=phases,
                         cycle=carry.cycle + n_cycles)
-    return carry2, stack(logs), stack(cyc_logs)
+    return carry2, stack(logs) if with_logs else None, stack(cyc_logs)

@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
 
 
 class SimState(NamedTuple):
@@ -29,7 +29,7 @@ def init_sim_state(cfg: Config, q_init=None, height: Optional[float] = None,
                    terrain=None, dtype=torch.float32,
                    device="cpu") -> SimState:
     """Initial simulator state standing on the flat ground."""
-    from qrw_tpu.models.solo12 import H_INIT
+    from qrw_tpu_torch.models.solo12 import H_INIT
     if terrain is not None:
         raise NotImplementedError("terrain is not ported yet (flat only)")
     if cfg.envID == 1:

@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.estimator import DeviceData
 from qrw_tpu_torch.ops import rbd_lane as rl
 from qrw_tpu_torch.sim.physics import SimState

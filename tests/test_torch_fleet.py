@@ -47,7 +47,8 @@ def runs():
         use_ref=True, interpret=True, stop_at_eps=False))(jcarry)
     jout = jax.tree.map(np.asarray, jout)
 
-    tps = tml.build_phase_data(CFG, tml.trot_phase_fsteps(CFG))
+    tps = tml.build_phase_data(CFG, tml.trot_phase_fsteps(CFG),
+                               device="cpu")
     tcarry = convert.to_torch(jax.tree.map(np.asarray, jcarry))
     tctl = tfl.make_controller(CFG)
     tout = tfl.fleet_rollout(tctl, tcarry, N_CYCLES, tps, tile=1,

@@ -1,20 +1,25 @@
 """The port's package boundary: no JAX, no silent fallbacks.
 
-Importing any qrw_tpu_torch module must not import jax (the port runs on
-a machine without it). Branches the port does not cover yet (rescue
-stage, Kalman estimator, terrain, DDP MPC, other CLI modes) raise
-instead of taking another path, and a fleet asked for on CUDA raises on
-a host without a card instead of continuing on the CPU."""
+Importing any qrw_tpu_torch module must import neither jax nor any
+module of the JAX package qrw_tpu (the port runs on a machine without
+them); its copies of qrw_tpu's configuration and robot model must equal
+the originals. Branches the port does not cover yet (Kalman estimator,
+terrain, DDP MPC, the full-size solver's warm refactorization, other CLI
+modes) raise instead of taking another path, and a fleet asked for on
+CUDA raises on a host without a card instead of continuing on the
+CPU."""
 
+import dataclasses
 import os
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
-from qrw_tpu.config import Config
+from qrw_tpu_torch.config import Config
 
 torch.set_num_threads(1)
 
@@ -34,10 +39,8 @@ def test_no_module_imports_jax():
         "convert._registry()\n"
         "assert len(mods) >= 25, mods\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'jaxlib' or m.startswith('qrw_tpu.')\n"
-        "             and not m.startswith(('qrw_tpu.config',\n"
-        "                                   'qrw_tpu.models')))\n"
+        "             if m in ('jax', 'jaxlib', 'qrw_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'qrw_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -53,19 +56,6 @@ def test_make_fleet_cuda_raises_without_card():
         pytest.skip("this host has a card; the check is for CPU hosts")
     with pytest.raises(RuntimeError, match="CUDA"):
         fleet.make_fleet(CFG, 128, None, device="cuda")
-
-
-def test_rescue_stage_raises():
-    from qrw_tpu_torch.core import mpc_lane as ml
-    from qrw_tpu_torch.sim import fleet
-    x = torch.zeros((12, CFG.n_steps + 1, 4))
-    f = torch.zeros((CFG.N_gait, 12, 4))
-    with pytest.raises(NotImplementedError):
-        ml.solve_mpc_batch_phase(CFG, x, f, None, [0, 0], tile=2,
-                                 rescue_cap=2)
-    with pytest.raises(NotImplementedError):
-        fleet.fleet_rollout(fleet.make_controller(CFG), None, 1, None,
-                            rescue_cap=2)
 
 
 @pytest.mark.parametrize("branch", ["kalman", "ddp", "terrain", "wbc"])
@@ -92,7 +82,30 @@ def test_cli_unported_modes_exit():
     from qrw_tpu_torch.runtime import main
     assert main.main(["--hetero", "8"]) == 2
     assert main.main([]) == 2
-    assert main.main(["--fleet", "8", "--rescue", "2"]) == 2
+
+
+def test_cli_rescue_defaults_to_the_jax_capacity(monkeypatch):
+    """--rescue defaults to max(4, B // 32) lanes, as the JAX entry
+    point's; an explicit value (0 included) is passed on as given."""
+    from qrw_tpu_torch.runtime import main
+    assert main.build_argparser().parse_args(["--fleet", "8"]).rescue is None
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_run_fleet(cfg, batch, tile, seed, device, n_cycles, rescue):
+        seen.append((batch, rescue))
+        raise Stop      # before anything is built or run
+
+    monkeypatch.setattr(main, "run_fleet", fake_run_fleet)
+    for argv, want in [(["--fleet", "256"], (256, 8)),
+                       (["--fleet", "4096"], (4096, 128)),
+                       (["--fleet", "128"], (128, 4)),
+                       (["--fleet", "1024", "--rescue", "0"], (1024, 0))]:
+        with pytest.raises(Stop):
+            main.main(argv)
+        assert seen.pop() == want, argv
 
 
 def test_kernel_dispatch_has_no_fallback():
@@ -101,10 +114,74 @@ def test_kernel_dispatch_has_no_fallback():
     (on a host without it, asking for the library raises)."""
     from qrw_tpu_torch import kernels
     from qrw_tpu_torch.ops import qp_phase
+    from qrw_tpu_torch.ops import qp_pallas
     q = torch.zeros((96, 128), device="meta")
     with pytest.raises(ValueError, match="device"):
         qp_phase.solve(q, q, None, [0])
+    P = torch.zeros((2, 96, 96), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        qp_pallas.solve(P, q[:, :2].T, q[:, :2], q, q)
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
             kernels._nvcc()
+
+
+def test_warm_refactorization_raises():
+    """The full-size path's warm refactorization from kinv_init
+    (Newton-Schulz, kernel K3, and the stale inverse) is not ported:
+    asking for it raises. refactor="chol" ignores the seed and factors
+    fresh, as in the JAX package; an unknown policy is refused."""
+    from qrw_tpu_torch.ops import qp_pallas
+    P = torch.eye(3).expand(2, 3, 3) * 2.0
+    q = torch.ones((2, 3))
+    A = torch.eye(3)
+    for refactor in ("ns", "stale"):
+        with pytest.raises(NotImplementedError, match="K3"):
+            qp_pallas.solve(P, q, A, q - 2, q + 2, kinv_init=P,
+                            refactor=refactor)
+    with pytest.raises(ValueError, match="refactor"):
+        qp_pallas.solve(P, q, A, q - 2, q + 2, refactor="newton")
+    chol = qp_pallas.solve(P, q, A, q - 2, q + 2, kinv_init=P,
+                           refactor="chol")
+    plain = qp_pallas.solve(P, q, A, q - 2, q + 2)
+    np.testing.assert_array_equal(chol.x.numpy(), plain.x.numpy())
+    assert bool(plain.converged.all())
+    np.testing.assert_allclose(plain.x.numpy(), -0.5, atol=1e-3)
+
+
+def test_config_copy_equals_jax_package():
+    """qrw_tpu_torch.config is a copy of qrw_tpu.config: the same
+    fields, defaults, derived values, replace() and load_config."""
+    from qrw_tpu import config as jcfg
+    from qrw_tpu_torch import config as tcfg
+    jf = dataclasses.fields(jcfg.Config)
+    tf = dataclasses.fields(tcfg.Config)
+    assert [(f.name, f.type, f.default) for f in tf] == \
+        [(f.name, f.type, f.default) for f in jf]
+    j, t = jcfg.Config(), tcfg.Config()
+    for prop in ("k_mpc", "n_steps", "q_init"):
+        assert getattr(t, prop) == getattr(j, prop), prop
+    kw = dict(velID=5, T_mpc=0.24, mu=0.7, N_SIMULATION=40)
+    assert dataclasses.asdict(t.replace(**kw)) == \
+        dataclasses.asdict(j.replace(**kw))
+    assert dataclasses.asdict(tcfg.load_config(None, velID=3)) == \
+        dataclasses.asdict(jcfg.load_config(None, velID=3))
+    assert (tcfg.yaml is None) == (jcfg.yaml is None)
+
+
+def test_solo12_copy_equals_jax_package():
+    """qrw_tpu_torch.models.solo12 is a copy of qrw_tpu.models.solo12:
+    every array of make_solo12() and H_INIT are equal."""
+    from qrw_tpu.models import solo12 as jsolo
+    from qrw_tpu_torch.models import solo12 as tsolo
+    j, t = jsolo.make_solo12(), tsolo.make_solo12()
+    assert t._fields == j._fields
+    for name, a, b in zip(j._fields, t, j):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=name)
+    assert tsolo.H_INIT == jsolo.H_INIT
+    for name in ("TOTAL_MASS", "GI", "COM_OFFSET", "Q_INIT", "NUM_BODIES",
+                 "NUM_JOINTS", "NUM_FEET"):
+        np.testing.assert_array_equal(getattr(tsolo, name),
+                                      getattr(jsolo, name), err_msg=name)

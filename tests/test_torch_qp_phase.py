@@ -33,7 +33,8 @@ def jps():
 
 @pytest.fixture(scope="module")
 def tps():
-    return tml.build_phase_data(CFG, tml.trot_phase_fsteps(CFG))
+    return tml.build_phase_data(CFG, tml.trot_phase_fsteps(CFG),
+                                device="cpu")
 
 
 def _batch(phases, per_phase, seed=0, vmax=0.6):
