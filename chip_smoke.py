@@ -32,6 +32,27 @@ Phases (any failure ends the run with a non-zero exit):
    one K1 launch per cycle (counts set to 0 just before, read after).
 6. The whole slice with the kernel against the whole slice with the
    plain solver: B = 128, 2 cycles, from one carry.
+7. Kernel K3 (qrw_tpu_torch/csrc/qp_ns_refine.cu) against its plain
+   version on full-size problems (n = 192) of the entry point's
+   build_batch at B = 1024: three Newton-Schulz steps from a good seed
+   (the inverse of a 0.1 mm earlier state) and from rolled-stance seeds
+   (they diverge), no step from the good seed. X, resid and the bad
+   flags compared; timed at B = 4096 with CUDA events.
+8. Kernel K2 at the full shape n = 192, m = 512 against its plain
+   version at B = 1024: one 50-iteration round cold and warm, one K_ref
+   round, and whole solves, cold, then warm under "ns", "chol" and
+   "stale". Flags and iteration counts equal except on the problems,
+   counted and printed, whose K3 bad flag differed between the paths,
+   whose adapted rho differs (cold solves), or whose termination
+   residual lies within 2x of its threshold ("stale"); timed at
+   B = 4096.
+9. The whole full-size path (core/mpc.solve_mpc_batch_pallas) with the
+   kernels against it with the plain versions at B = 512: cold, then
+   warm "ns" and "stale" from the kernel path's carry, compared as in 8.
+10. The entry point at full width: qrw_tpu_torch.eval.kernel_profile at
+   B = 4096, reps 5, tiles 16. Cold and warm-"ns" conv >= 0.99, K2 and
+   K3 launch counts as worked out (counts set to 0 just before, read
+   just after), then one call per policy with every output finite.
 
 The second-to-last line of output is one JSON object describing the
 kernels, the line before it the card's name and power limit; the last
@@ -57,6 +78,22 @@ SLICE_CYCLES = 2
 RESCUE_R = (32, 128)            # K2 batch sizes: B // 32 at B = 1024, 4096
 RESCUE_SCHEDULE = [50, 150, 150, 100]
 RESCUE_CYCLES = (2, 1, 5)       # normal, crippled, recovery cycles
+FULL_B = 1024                   # full-size K3 / K2 comparisons
+FULL_TIME_B = 4096              # the entry point's batch: kernel timings
+PATH_B = 512                    # whole full-size path, kernels vs plain
+PROFILE_ARGV = ["--batch", "4096", "--reps", "5", "--tiles", "16"]
+# Launches of the entry point at PROFILE_ARGV, per --tiles label
+# (qrw_tpu_torch/eval/kernel_profile.py): the cold solve's 3 rounds
+# (schedule [50, 200, 200] at max_iter 450, interval 200), then 4
+# policies x (1 warm-up + 5 timed) one-round warm calls, each one K2
+# launch; "ns" 50, "ns" 1 and "stale" seed round 0 from the carried
+# K^-1, one K3 launch each (ns_iters 3, 3 and 0), "chol" none.
+PROFILE_K2_LAUNCHES = 3 + 4 * 6
+PROFILE_K3_LAUNCHES = 3 * 6
+# Cold and warm-"ns" conv of the entry point at B = 4096. The JAX
+# package's own full-size run measured cold 0.9983 and warm 0.9959
+# (BENCH_r02.json, conv only, TPU v5e history).
+FULL_CONV_BAR = 0.99
 # Convergence bar of the in-loop MPC. The JAX package's no-rescue warm
 # convergence is 0.97 (BENCH_full.json, warm_conv_no_rescue); the fleet's
 # first cycle is a cold start, so the bar leaves that margin.
@@ -87,6 +124,21 @@ REL_TOL = 1e-4
 # Both end at the same optimum within the 1e-4 termination tolerance;
 # 1e-3 of each array's largest entry holds them to a tenth of it.
 SOLVE_TOL = 1e-3
+# Whole COLD full-size solves, kernel path against plain path: the two
+# rho adaptations read primal residuals at the float32 round-off floor
+# (ROADMAP queue 3), so the paths take different iterates; each ends
+# within OSQP's 1e-4 tolerances, which on these KKT systems (condition
+# ~1e7) leave low-curvature force directions free by a few percent of the
+# ~12 N stance force. tests/test_qp_pallas.py holds two converged solvers
+# of the same problems to 0.25 N; 1e-2 of the largest entry (25 N) is
+# that bound. Warm solves from one carry (no adaptation) keep SOLVE_TOL.
+COLD_SOLVE_TOL = 1e-2
+# K3 against its plain version (torch.matmul): the same float32 products
+# in another summation order, three Newton-Schulz steps contracting the
+# error. Measured 0.0 on the card at B = 64 (the kernel's k-ordered FMA
+# chain matched cuBLAS); 1e-5 of max|X| allows an order change, and the
+# residuals are held to 1e-4 relative.
+NS_TOL = 1e-5
 
 
 def log(msg):
@@ -127,18 +179,33 @@ def k1_work(B, cap, P, tile, iters, converged, n_iters=300,
     return flops, nbytes
 
 
-def k2_work(R, n, m, n_iters):
+def k2_work(R, n, m, n_iters, k_ref=False):
     """Operations and bytes of one K2 launch: per problem-iteration the
     products A'w, K^-1 b and A xt (2mn + 2n^2 + 2mn) and the elementwise
-    updates (~82 kflop at n = 96, m = 160), plus z = A x0 and the
-    residual pass (A x, A'y, P x); bytes: K^-1 and P per problem, A once,
-    the vectors in and out."""
+    updates (~82 kflop at n = 96, m = 160, ~0.47 Mflop at n = 192,
+    m = 512), with k_ref two refinement steps more (K xt and K^-1 r,
+    2n^2 each, twice: 8n^2, and their 4n elementwise operations), plus
+    z = A x0 and the residual pass (A x, A'y, P x); bytes: K^-1 and P
+    (and K) per problem, A once, the vectors in and out."""
     per_it = 2 * m + 2 * m * n + 3 * n + 2 * n * n + 2 * m * n + 3 * m \
         + 4 * m + 3 * m + 3 * n
+    if k_ref:
+        per_it += 8 * n * n + 4 * n
     once = m + 2 * m * n + (2 * m * n + 2 * m * n + 2 * n * n + 4 * m + 4 * n)
     flops = R * (n_iters * per_it + once)
-    nbytes = 4 * (R * (2 * n * n + 3 * n + 4 * m + n + 2 * m + 4) + m * n)
+    mats = 3 if k_ref else 2
+    nbytes = 4 * (R * (mats * n * n + 3 * n + 4 * m + n + 2 * m + 4)
+                  + m * n)
     return flops, nbytes
+
+
+def k3_work(B, n, ns_iters):
+    """Operations and bytes of one K3 launch: 2 ns_iters + 1 products of
+    n x n matrices (2 n^3 each) and the 2 n^2 of the update and the
+    residual; bytes: K and X0 read, X and resid written."""
+    flops = B * ((2 * ns_iters + 1) * 2 * n ** 3 + 2 * ns_iters * n * n
+                 + 2 * n * n)
+    return flops, 4 * B * (3 * n * n + 1)
 
 
 def card_line() -> str:
@@ -286,8 +353,8 @@ def check_rescue_kernel(cfg, device):
     s = ml.default_rescue_settings()
     kernel_round = qpp._run_kernel
 
-    def plain_round(*args, tile=16):
-        return qpp._run_kernel_plain(*args)
+    def plain_round(*args, tile=16, K=None):
+        return qpp._run_kernel_plain(*args, K=K)
 
     def solve_with(round_fn, *args, **kw):
         qpp._run_kernel = round_fn           # the plain path, on purpose
@@ -511,6 +578,402 @@ def check_slice(cfg, ps, device):
     assert not bool(lk.error.any()), "security latch in the slice run"
 
 
+# ----------------------------------------------------------------------
+# The full-size batched MPC path (kernels K2 at n = 192, m = 512 and K3)
+# ----------------------------------------------------------------------
+
+def full_settings():
+    """The entry point's QP settings (kernel_profile.py)."""
+    from qrw_tpu_torch.ops import qp
+    return qp.QPSettings(eps_abs=1e-4, eps_rel=1e-4, max_iter=450,
+                         adaptive_rho_interval=200)
+
+
+def full_problems(cfg, B, device, shift=0.0, seed=0):
+    """B full-size condensed QPs of the entry point's build_batch (the
+    current state shifted by `shift`): (H, q, A, l, u, cone)."""
+    from qrw_tpu_torch.core import mpc as tm
+    from qrw_tpu_torch.eval.kernel_profile import build_batch
+    from qrw_tpu_torch.ops import qp
+    xr, fs = build_batch(cfg, B, np.random.default_rng(seed))
+    xr[:, :, 0] += shift
+    t = lambda a: torch.as_tensor(a, device=device)
+    H, q, l, u, _, _ = tm.build_qp_compact(cfg, t(xr), t(fs))
+    A = torch.as_tensor(tm.cone_matrix(cfg.n_steps, cfg.mu),
+                        dtype=torch.float32, device=device)
+    return H, q, A, l, u, qp.ConeStructure(cfg.n_steps, cfg.mu)
+
+
+def full_kkt(H, q, A, l, u, cone, rho=0.1):
+    """K, rho', sigma' at a uniform rho, with the solver's Ruiz scaling."""
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    _, sig, rho_to_vec = qpp.precondition(H, q, A, l, u, full_settings())
+    rho_vec = rho_to_vec(torch.full((q.shape[0], 1), rho,
+                                    device=q.device))
+    return (qpp._build_K(H, A, rho_vec, sig, cone).contiguous(), rho_vec,
+            sig)
+
+
+def good_seed(cfg, B, device):
+    """(K, seed): K of B problems at rho 0.1 and the inverse of the same
+    problems 0.1 mm of state earlier (a good Newton-Schulz seed)."""
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    K, _, _ = full_kkt(*full_problems(cfg, B, device))
+    K_prev, _, _ = full_kkt(*full_problems(cfg, B, device, shift=-1e-4))
+    return K, qpp._chol_inv(K_prev).contiguous()
+
+
+def bad_flags(resid):
+    """_factor's guard: not finite, or above 1e-2."""
+    return ~torch.isfinite(resid) | (resid > 1e-2)
+
+
+def plain_ns_refine(K, X0, ns_iters):
+    """ops/qp_pallas._ns_refine with K3's plain version on any device."""
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    X, resid = qpp._ns_refine_plain(K, X0, ns_iters)
+    return 0.5 * (X + X.transpose(1, 2)), resid
+
+
+class solver_path:
+    """Run ops/qp_pallas with the kernels ("kernel") or with their plain
+    versions ("plain", on purpose), recording the residual of every
+    Newton-Schulz refinement in `resids`."""
+
+    def __init__(self, which):
+        self.which, self.resids = which, []
+
+    def __enter__(self):
+        from qrw_tpu_torch.ops import qp_pallas as qpp
+        self.saved = (qpp._run_kernel, qpp._ns_refine)
+        ns = plain_ns_refine if self.which == "plain" else qpp._ns_refine
+
+        def record(K, X0, ns_iters):
+            X, resid = ns(K, X0, ns_iters)
+            self.resids.append(resid)
+            return X, resid
+        qpp._ns_refine = record
+        if self.which == "plain":
+            qpp._run_kernel = lambda *a, tile=16, K=None: \
+                qpp._run_kernel_plain(*a, K=K)
+        return self
+
+    def __exit__(self, *exc):
+        from qrw_tpu_torch.ops import qp_pallas as qpp
+        qpp._run_kernel, qpp._ns_refine = self.saved
+
+
+def rho_differs(got, want):
+    """Problems whose adapted rho differs between the two paths."""
+    return ((got.rho / want.rho).flatten() - 1.0).abs() > 1e-3
+
+
+def near_threshold(sol, P, A, q, s):
+    """Problems whose termination test reads a residual within a factor 2
+    of its threshold: max(pri / eps_pri, dua / eps_dua) in (0.5, 2), with
+    OSQP's thresholds from the returned iterate."""
+    amax = lambda v: v.abs().amax(dim=1)
+    Ax = sol.x @ A.T
+    Px = torch.einsum("bij,bi->bj", P, sol.x)
+    n1 = torch.maximum(amax(Ax), amax(sol.z))
+    n2 = torch.maximum(torch.maximum(amax(Px), amax(sol.y @ A)), amax(q))
+    ratio = torch.maximum(sol.pri_res / (s.eps_abs + s.eps_rel * n1),
+                          sol.dua_res / (s.eps_abs + s.eps_rel * n2))
+    return (ratio > 0.5) & (ratio < 2.0)
+
+
+def compare_solves(name, got, want, kpath, ppath, tol, excuse=None,
+                   why=""):
+    """Kernel path vs plain path of one solve: x, y, z within `tol` of
+    their scale; converged flags and iteration counts equal except on
+    problems whose K3 bad flag differed between the paths and on those
+    in `excuse` (counted and printed with `why`): for a cold solve the
+    problems whose adapted rho differs between the paths (the rho rule
+    reads residuals at the float32 round-off floor, ROADMAP queue 3), for
+    the "stale" policy those reading a residual near its threshold (its
+    refinement stalls at its noise floor next to the 1e-4 tolerances,
+    qrw_tpu/ops/qp_pallas.py:410-415). Returns the worst absolute
+    error."""
+    excused = torch.zeros_like(want.converged)
+    for rk, rp in zip(kpath.resids, ppath.resids):
+        excused |= bad_flags(rk) != bad_flags(rp)
+    n_exc = int(excused.sum())
+    n_more = 0
+    if excuse is not None:
+        n_more = int((excuse & ~excused).sum())
+        excused = excused | excuse
+    flag_diff = (got.converged != want.converged) | (got.iters != want.iters)
+    n_conv = int((got.converged != want.converged).sum())
+    n_it = int((got.iters != want.iters).sum())
+    n_unexcused = int((flag_diff & ~excused).sum())
+    worst, errs, fails = 0.0, [], []
+    for f in ("x", "y", "z"):
+        g, w = getattr(got, f), getattr(want, f)
+        keep = ~excused[:, None].expand_as(w)
+        e = float((g - w)[keep].abs().max()) if bool(keep.any()) else 0.0
+        lim = tol * max(1.0, float(w.abs().max()))
+        errs.append(e)
+        worst = max(worst, e)
+        if not bool(torch.isfinite(g).all()):
+            fails.append(f"{f} not finite")
+        if not e <= lim:
+            fails.append(f"{f}: {e:.3e} > {lim:.3e}")
+    rr = (got.rho / want.rho).flatten()
+    log(f"{name}: conv kernel {float(got.converged.float().mean()):.4f} "
+        f"plain {float(want.converged.float().mean()):.4f}, mean iters "
+        f"{float(got.iters.float().mean()):.1f}; K3 bad flags differing "
+        f"{n_exc}; {why or 'other excused'} {n_more}; flag mismatches "
+        f"conv {n_conv} iters {n_it} "
+        f"(unexcused {n_unexcused}); max|dx| {errs[0]:.2e} max|dy| "
+        f"{errs[1]:.2e} max|dz| {errs[2]:.2e} (limit {tol:g} of scale); "
+        f"rho ratio [{float(rr.min()):.4f}, {float(rr.max()):.4f}]")
+    assert not fails, f"{name}: {fails}"
+    assert n_unexcused == 0, f"{n_unexcused} flags differ outside K3's"
+    return worst
+
+
+def check_ns_kernel(cfg, device):
+    """Phase 7: K3 against its plain version. Returns (max_abs_err,
+    (ms, lo, hi), (plain_ms, lo, hi), (bound_ms, bound_by)) of three
+    steps from a good seed at B = FULL_TIME_B, and the same for no step
+    (the "stale" policy's guard)."""
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    K, good = good_seed(cfg, FULL_B, device)
+    rolled = torch.roll(good, 1, dims=0).contiguous()
+    worst = 0.0
+    for name, X0, ns in [("3 steps, good seed", good, 3),
+                         ("3 steps, rolled-stance seed", rolled, 3),
+                         ("no step, good seed", good, 0)]:
+        Xk, rk = qpp._ns_launch(K, X0, ns)
+        Xp, rp = qpp._ns_refine_plain(K, X0, ns)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(Xp)
+        n_fin = int((torch.isfinite(Xk) != fin).sum())
+        e = float((Xk - Xp)[fin].abs().max()) if bool(fin.any()) else 0.0
+        scale = float(Xp[fin].abs().max()) if bool(fin.any()) else 1.0
+        worst = max(worst, e)
+        rk_, rp_ = (torch.where(torch.isfinite(r), r, torch.full_like(
+            r, float("inf"))) for r in (rk, rp))
+        both = torch.isfinite(rk_) & torch.isfinite(rp_)
+        r_err = float(((rk_ - rp_).abs() / rp_.abs().clamp(min=1e-30))[
+            both].max()) if bool(both.any()) else 0.0
+        n_rinf = int((torch.isfinite(rk_) != torch.isfinite(rp_)).sum())
+        n_bad = int((bad_flags(rk) != bad_flags(rp)).sum())
+        n_near = int(((rp > 0.5e-2) & (rp < 2e-2)).sum())
+        log(f"K3 qp_ns_refine B={FULL_B} n=192 {name}: bad kernel "
+            f"{int(bad_flags(rk).sum())} plain {int(bad_flags(rp).sum())} "
+            f"(differing {n_bad}, resid within 2x of 1e-2: {n_near}); "
+            f"resid median {float(rp.median()):.3e}; max|dX| {e:.2e} of "
+            f"max|X| {scale:.3g}; finite pattern mismatches {n_fin}; resid "
+            f"rel err {r_err:.2e}, inf mismatches {n_rinf}")
+        assert n_fin == 0, "K3 finite pattern differs"
+        assert e <= NS_TOL * scale, f"K3 X: {e:.3e} > {NS_TOL} * {scale:.3g}"
+        assert n_rinf == 0 and r_err <= 1e-4, f"K3 resid rel err {r_err}"
+        assert n_bad <= n_near, f"{n_bad} K3 bad flags differ"
+    K, good = good_seed(cfg, FULL_TIME_B, device)
+    n = K.shape[-1]
+    out = []
+    for ns in (3, 0):
+        k_ms = time_ms(lambda: qpp._ns_launch(K, good, ns))
+        p_ms = time_ms(lambda: qpp._ns_refine_plain(K, good, ns))
+        b = bound(*k3_work(FULL_TIME_B, n, ns))
+        log(f"K3 qp_ns_refine B={FULL_TIME_B} ns_iters={ns}: kernel "
+            f"{k_ms[0]:.3f} ms [{k_ms[1]:.3f}, {k_ms[2]:.3f}] plain "
+            f"{p_ms[0]:.3f} ms [{p_ms[1]:.3f}, {p_ms[2]:.3f}] (median "
+            f"[min, max] of 7 windows); bound {b[0]:.4f} ms ({b[1]})")
+        out.append((k_ms, p_ms, b))
+    return (worst,) + out[0] + (out[1],)
+
+
+def check_full_kernel(cfg, device):
+    """Phase 8: K2 at n = 192, m = 512 against its plain version. Returns
+    (max_abs_err of the single rounds, on the same inputs, (ms, lo, hi),
+    (plain_ms, lo, hi), (bound_ms, bound_by)) of one 50-iteration round
+    at B = FULL_TIME_B, and the same for the K_ref variant."""
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    s = full_settings()
+    H, q, A, l, u, cone = full_problems(cfg, FULL_B, device)
+    H2, q2, _, l2, u2, _ = full_problems(cfg, FULL_B, device, shift=0.001)
+    worst = 0.0
+    with solver_path("kernel") as kp:
+        cold = qpp.solve(H, q, A, l, u, s, cone=cone)
+    with solver_path("plain") as pp:
+        cold_p = qpp.solve(H, q, A, l, u, s, cone=cone)
+    torch.cuda.synchronize()
+    compare_solves(f"K2 qp_admm B={FULL_B} n=192 m=512 whole cold solve",
+                   cold, cold_p, kp, pp, COLD_SOLVE_TOL,
+                   rho_differs(cold, cold_p), "adapted rho differing")
+    carry = dict(x0=cold.x, y0=cold.y, rho_init=cold.rho,
+                 precond=cold.precond, kinv_init=cold.kinv,
+                 kinv_rho=cold.kinv_rho, cone=cone, schedule=[50])
+    for policy in ("ns", "chol", "stale"):
+        with solver_path("kernel") as kp:
+            got = qpp.solve(H2, q2, A, l2, u2, s, refactor=policy, **carry)
+        with solver_path("plain") as pp:
+            want = qpp.solve(H2, q2, A, l2, u2, s, refactor=policy, **carry)
+        torch.cuda.synchronize()
+        floor = None if policy != "stale" else (
+            near_threshold(got, H2, A, q2, s) | near_threshold(want, H2, A,
+                                                             q2, s))
+        compare_solves(f"K2 qp_admm B={FULL_B} whole warm solve "
+                       f"\"{policy}\" (1 mm shift, schedule [50])", got, want,
+                       kp, pp, SOLVE_TOL, floor, "near the tolerance")
+    # single rounds on fixed inputs
+    K, rho_vec, sig = full_kkt(H, q, A, l, u, cone)
+    K2, rho_vec2, sig2 = full_kkt(H2, q2, A, l2, u2, cone)
+    zeros = (torch.zeros_like(q), torch.zeros_like(l))
+    rounds = [("cold", (qpp._chol_inv(K), H, A, q, l, u, rho_vec, sig,
+                        *zeros), None),
+              ("warm", (qpp._chol_inv(K2), H2, A, q2, l2, u2, rho_vec2, sig2,
+                        cold.x, cold.y), None),
+              ("K_ref, previous inverse", (qpp._chol_inv(K), H2, A, q2, l2,
+                                           u2, rho_vec2, sig2, cold.x,
+                                           cold.y), K2)]
+    for name, args, Kr in rounds:
+        args = args + (s.alpha, 50)
+        got = qpp._run_kernel(*args, K=Kr)
+        want = qpp._run_kernel_plain(*args, K=Kr)
+        torch.cuda.synchronize()
+        errs = []
+        for f, g, w in zip(("x", "y", "z"), got[:3], want[:3]):
+            assert torch.isfinite(g).all(), f"K2 full round {f} not finite"
+            e = float((g - w).abs().max())
+            errs.append(e)
+            worst = max(worst, e)
+            lim = REL_TOL * max(1.0, float(w.abs().max()))
+            assert e <= lim, f"K2 full round {name} {f}: {e:.3e} > {lim:.3e}"
+        flag = lambda r: ((r[3] <= s.eps_abs + s.eps_rel * r[5])
+                          & (r[4] <= s.eps_abs + s.eps_rel * torch.maximum(
+                              r[6], args[3].abs().amax(dim=1))))
+        n_flag = int((flag(got) != flag(want)).sum())
+        log(f"K2 qp_admm B={FULL_B} n=192 m=512 one 50-iteration round "
+            f"{name}: converged kernel {int(flag(got).sum())} plain "
+            f"{int(flag(want).sum())} (mismatches {n_flag}); max|dx| "
+            f"{errs[0]:.2e} max|dy| {errs[1]:.2e} max|dz| {errs[2]:.2e}")
+        assert n_flag == 0, f"{n_flag} round flags differ"
+    # timings at the entry point's batch: a round from zero, and K_ref
+    H, q, A, l, u, cone = full_problems(cfg, FULL_TIME_B, device)
+    K, rho_vec, sig = full_kkt(H, q, A, l, u, cone)
+    Kinv = qpp._chol_inv(K).contiguous()
+    args = (Kinv, H, A, q, l, u, rho_vec, sig, torch.zeros_like(q),
+            torch.zeros_like(l), s.alpha, 50)
+    n, m = q.shape[1], A.shape[0]
+    out = []
+    for name, Kr in (("plain", None), ("K_ref", K)):
+        k_ms = time_ms(lambda: qpp._run_kernel(*args, K=Kr))
+        p_ms = time_ms(lambda: qpp._run_kernel_plain(*args, K=Kr))
+        b = bound(*k2_work(FULL_TIME_B, n, m, 50, k_ref=Kr is not None))
+        log(f"K2 qp_admm B={FULL_TIME_B} n=192 m=512 one 50-iteration round "
+            f"({name}): kernel {k_ms[0]:.3f} ms [{k_ms[1]:.3f}, "
+            f"{k_ms[2]:.3f}] plain {p_ms[0]:.3f} ms [{p_ms[1]:.3f}, "
+            f"{p_ms[2]:.3f}] (median [min, max] of 7 windows); bound "
+            f"{b[0]:.4f} ms ({b[1]})")
+        out.append((k_ms, p_ms, b))
+    return (worst,) + out[0] + (out[1],)
+
+
+def check_full_path(cfg, device):
+    """Phase 9: solve_mpc_batch_pallas with the kernels against it with
+    the plain versions, B = PATH_B: cold, then warm "ns" and "stale" from
+    the kernel path's cold carry on a 1 mm shifted state."""
+    from qrw_tpu_torch.core import mpc as tm
+    from qrw_tpu_torch.eval.kernel_profile import build_batch
+    s = full_settings()
+    xr, fs = build_batch(cfg, PATH_B, np.random.default_rng(1))
+    t = lambda a: torch.as_tensor(a, device=device)
+    xr2 = xr.copy()
+    xr2[:, :, 0] += 0.001
+    with solver_path("kernel") as kp:
+        cold = tm.solve_mpc_batch_pallas(cfg, t(xr), t(fs), settings=s)
+    with solver_path("plain") as pp:
+        cold_p = tm.solve_mpc_batch_pallas(cfg, t(xr), t(fs), settings=s)
+    H2, q2, _, _, _, _ = tm.build_qp_compact(cfg, t(xr2), t(fs))
+    A = torch.as_tensor(tm.cone_matrix(cfg.n_steps, cfg.mu),
+                        dtype=torch.float32, device=device)
+    runs = [("cold", cold, cold_p, kp, pp)]
+    for policy in ("ns", "stale"):
+        with solver_path("kernel") as kp:
+            got = tm.solve_mpc_batch_pallas(cfg, t(xr2), t(fs), state=cold[1],
+                                            settings=s, refactor=policy)
+        with solver_path("plain") as pp:
+            want = tm.solve_mpc_batch_pallas(cfg, t(xr2), t(fs),
+                                             state=cold[1], settings=s,
+                                             refactor=policy)
+        runs.append((f"warm \"{policy}\"", got, want, kp, pp))
+    torch.cuda.synchronize()
+    for name, got, want, kp, pp in runs:
+        tol, why, excuse = SOLVE_TOL, "", None
+        if name == "cold":
+            tol, why = COLD_SOLVE_TOL, "adapted rho differing"
+            excuse = rho_differs(got[2], want[2])
+        elif "stale" in name:
+            why = "near the tolerance"
+            excuse = (near_threshold(got[2], H2, A, q2, s)
+                      | near_threshold(want[2], H2, A, q2, s))
+        compare_solves(f"full path B={PATH_B} {name} (solver)", got[2],
+                       want[2], kp, pp, tol, excuse, why)
+        excused = torch.zeros_like(want[2].converged)
+        for rk, rp in zip(kp.resids, pp.resids):
+            excused |= bad_flags(rk) != bad_flags(rp)
+        if excuse is not None:
+            excused |= excuse
+        a, b = got[0][~excused], want[0][~excused]
+        assert torch.isfinite(got[0]).all(), f"full path {name} x_f"
+        e = float((a - b).abs().max())
+        lim = tol * max(1.0, float(b.abs().max()))
+        log(f"full path B={PATH_B} {name}: x_f (24 x N a problem) max "
+            f"|diff| {e:.2e} (limit {lim:.2e})")
+        assert e <= lim, f"full path {name} x_f: {e:.3e} > {lim:.3e}"
+
+
+def run_entry_point(cfg, device, argv=PROFILE_ARGV):
+    """Phase 10: the entry point at full width. Returns (K2 launches, K3
+    launches, its JSON dict)."""
+    from qrw_tpu_torch.core import mpc as tm
+    from qrw_tpu_torch.eval import kernel_profile
+    from qrw_tpu_torch.ops import qp_pallas
+    tiles = argv[argv.index("--tiles") + 1:]
+    torch.cuda.synchronize()
+    qp_pallas.KERNEL_LAUNCHES = 0
+    qp_pallas.NS_KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = kernel_profile.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, k3 = qp_pallas.KERNEL_LAUNCHES, qp_pallas.NS_KERNEL_LAUNCHES
+    log(f"entry point python -m qrw_tpu_torch.eval.kernel_profile "
+        f"{' '.join(argv)}: {wall:.2f} s; K2 launches {k2}, K3 launches "
+        f"{k3}")
+    log(json.dumps(res))
+    assert k2 == PROFILE_K2_LAUNCHES * len(tiles), f"{k2} K2 launches"
+    assert k3 == PROFILE_K3_LAUNCHES * len(tiles), f"{k3} K3 launches"
+    for tile in tiles:
+        cold = res[f"tile{tile}_cold_conv"]
+        warm = res[f"tile{tile}_ns_50it"]["conv"]
+        assert cold >= FULL_CONV_BAR, f"cold conv {cold}"
+        assert warm >= FULL_CONV_BAR, f"warm ns conv {warm}"
+    # every policy's outputs finite, on the entry point's inputs
+    B = int(argv[argv.index("--batch") + 1])
+    xr, fs = kernel_profile.build_batch(cfg, B, np.random.default_rng(0))
+    xs, fs = torch.as_tensor(xr, device=device), torch.as_tensor(
+        fs, device=device)
+    s = full_settings()
+    _, st, _ = tm.solve_mpc_batch_pallas(cfg, xs, fs, settings=s)
+    for policy, iters in (("ns", 50), ("ns", 1), ("chol", 50),
+                          ("stale", 50)):
+        x_f, st2, sol = tm.solve_mpc_batch_pallas(
+            cfg, xs, fs, state=st, settings=s, refactor=policy,
+            schedule=[iters])
+        bad = [name for name, v in [("x_f", x_f)] + list(zip(st2._fields,
+                                                              st2))
+               if not bool(torch.isfinite(v).all())]
+        log(f"entry point inputs, warm \"{policy}\" {iters} it: conv "
+            f"{float(sol.converged.float().mean()):.4f}, non-finite "
+            f"outputs {bad}")
+        assert not bad, f"{policy}: non-finite {bad}"
+    return k2, k3, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -541,6 +1004,10 @@ def main() -> int:
     k2_launches = run_rescue_path(cfg, device)
     launches, _ = run_main_path(cfg, device)
     check_slice(cfg, ps, device)
+    err3, k3_ms, p3_ms, k3_bound, k3_ns0 = check_ns_kernel(cfg, device)
+    err4, k4_ms, p4_ms, k4_bound, k4_ref = check_full_kernel(cfg, device)
+    check_full_path(cfg, device)
+    k2_full, k3_launches, _ = run_entry_point(cfg, device)
 
     log(json.dumps({"kernels": [{
         "name": "qp_phase", "route": "cuda",
@@ -554,7 +1021,23 @@ def main() -> int:
         "replaces": "qrw_tpu/ops/qp_pallas.py:55",
         "launches": k2_launches, "max_abs_err": err2,
         "ms": k2_ms[0], "plain_ms": p2_ms[0], "bound_ms": k2_bound[0],
-        "bound_by": k2_bound[1], "library_ms": None}]}))
+        "bound_by": k2_bound[1], "library_ms": None}, {
+        "name": "qp_admm_full", "route": "cuda",
+        "source": "qrw_tpu_torch/csrc/qp_admm.cu",
+        "replaces": "qrw_tpu/ops/qp_pallas.py:55",
+        "launches": k2_full, "max_abs_err": err4,
+        "ms": k4_ms[0], "plain_ms": p4_ms[0], "bound_ms": k4_bound[0],
+        "bound_by": k4_bound[1], "library_ms": None,
+        "k_ref_ms": k4_ref[0][0], "k_ref_plain_ms": k4_ref[1][0],
+        "k_ref_bound_ms": k4_ref[2][0]}, {
+        "name": "qp_ns_refine", "route": "cuda",
+        "source": "qrw_tpu_torch/csrc/qp_ns_refine.cu",
+        "replaces": "qrw_tpu/ops/qp_pallas.py:194",
+        "launches": k3_launches, "max_abs_err": err3,
+        "ms": k3_ms[0], "plain_ms": p3_ms[0], "bound_ms": k3_bound[0],
+        "bound_by": k3_bound[1], "library_ms": None,
+        "ns0_ms": k3_ns0[0][0], "ns0_plain_ms": k3_ns0[1][0],
+        "ns0_bound_ms": k3_ns0[2][0]}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

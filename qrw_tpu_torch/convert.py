@@ -10,9 +10,9 @@ through. `to_numpy` goes back: tensors become numpy arrays, and with
 NamedTuple takes the class found at the same place in `like`.
 
 Covered: PhaseQPData, PhaseStructure, ControllerState, SimState,
-DeviceData, MPCLaneState, MPCWarmState, FleetCarry and the solver
-results (PhaseQPResult, PallasQPResult, QPSolution), with everything
-they hold.
+DeviceData, MPCLaneState, MPCWarmState, MPCBatchState, FleetCarry and
+the solver results (PhaseQPResult, PallasQPResult, QPSolution), with
+everything they hold.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ def _registry():
         classes = [
             qp_phase.PhaseQPData, qp_phase.PhaseQPResult,
             qp_pallas.PallasQPResult, qp.QPSolution, mpc.MPCWarmState,
+            mpc.MPCBatchState,
             mpc_lane.PhaseStructure, mpc_lane.MPCLaneState,
             controller.ControllerState, controller.PreMPC,
             controller.Result, controller.WBCInputs,

@@ -1,15 +1,15 @@
-"""Centroidal convex MPC: condensed-QP assembly and the support-reduced
-batched solver.
+"""Centroidal convex MPC: condensed-QP assembly and the batched solvers.
 
-Partial port of qrw_tpu/core/mpc.py (mpc.py:65-489 as the fleet reaches
-it): the warm-start state carried by ControllerState, the constant cone
-matrix, the shared assembly of input blocks and free response, the
-support selection, the support-reduced QP assembly (the shared proximal
-metric of core/mpc_lane.build_phase_data, and the rescue stage's
-problems), recover_dx and solve_mpc_batch_reduced with its warm carry,
-the solver of the rescue stage. The per-problem XLA-style solver
-(solve_mpc) and the full-size path (solve_mpc_batch_pallas) are not
-ported yet.
+Partial port of qrw_tpu/core/mpc.py (mpc.py:65-590): the warm-start state
+carried by ControllerState, the constant cone matrix, the shared assembly
+of input blocks and free response, the structured condensed-QP build
+(build_qp_compact), the support selection, the support-reduced QP
+assembly (the shared proximal metric of core/mpc_lane.build_phase_data,
+and the rescue stage's problems), recover_dx, solve_mpc_batch_reduced
+with its warm carry (the solver of the rescue stage), and the full-size
+batched path solve_mpc_batch_pallas with its warm carry MPCBatchState
+and shift_warm_state. The per-problem XLA-style solver (solve_mpc) and
+the dense build_qp are not ported yet.
 
 States are eliminated analytically: dx = G f + h with
 G[k, j] = A^(k-1-j) B_j and A^p = I + p dt E (E nilpotent), as in the
@@ -138,6 +138,39 @@ def _h_coeffs(n_steps: int):
     mask = (t[None, :] >= mx[..., None])
     S2 = np.einsum("jlt,jt,lt->jl", mask, tj, tj)
     return S0, S2
+
+
+def build_qp_compact(cfg: Config, xref, fsteps):
+    """Structured condensed-QP build: H (12N, 12N) from two einsums of
+    the input blocks with the closed-form coefficients of _h_coeffs, and
+    qlin = G' W h, without materializing G. xref (..., 12, N+1); fsteps
+    (..., N_gait, 12); every output takes the leading batch axes.
+    Returns (H, qlin, l, u, Bl, h); recover_dx(cfg, Bl, x, h) gives the
+    state response."""
+    N = cfg.n_steps
+    dt = cfg.dt_mpc
+    dtype, dev = xref.dtype, xref.device
+    bs = tuple(xref.shape[:-2])
+    Bl, hblk, l, u, mask, p = _assemble_common(cfg, xref, fsteps)
+    w = torch.as_tensor(cfg.w_state, dtype=dtype, device=dev)
+    wtop, wbot = w[0:6], w[6:12]
+    S0, S2 = (torch.as_tensor(S, dtype=dtype, device=dev)
+              for S in _h_coeffs(N))
+    M1 = torch.einsum("...jai,a,...lak->...jlik", Bl, wtop, Bl)
+    M2 = torch.einsum("...jai,a,...lak->...jlik", Bl, wbot, Bl)
+    Hblk = (dt * dt) * S2[:, :, None, None] * M1 \
+        + S0[:, :, None, None] * M2                      # (..., N, N, 12, 12)
+    H = Hblk.transpose(-3, -2).reshape(bs + (12 * N, 12 * N))
+    H = H + cfg.w_force * torch.eye(12 * N, dtype=dtype, device=dev)
+
+    htop_w = wtop * hblk[..., 0:6]                        # (..., N, 6)
+    hbot_w = wbot * hblk[..., 6:12]
+    pm = mask.T * p.T.to(dtype)                           # (j, t): (t-j)+
+    T1 = pm @ htop_w
+    T2 = mask.T @ hbot_w
+    qlin = torch.einsum("...jai,...ja->...ji", Bl,
+                        dt * T1 + T2).reshape(bs + (12 * N,))
+    return H, qlin, l, u, Bl, hblk.reshape(bs + (12 * N,))
 
 
 def support_indices(stance_flat, cap: int):
@@ -313,3 +346,88 @@ def solve_mpc_batch_reduced(cfg: Config, xrefs, fsteps,
     forces = f_full.reshape(B, N, 12).transpose(1, 2)
     x_f = torch.cat([states, forces], dim=1)               # (B, 24, N)
     return x_f, MPCWarmState(f=f_full, y=y_full, rho=sol.rho), sol, ok
+
+
+class MPCBatchState(NamedTuple):
+    """Warm carry of the full-size batched MPC: previous primal / dual,
+    adapted rho, the reusable Ruiz preconditioner and the last K^-1 (the
+    seed of the Newton-Schulz warm refactorization) with the rho it was
+    factored at."""
+    f: torch.Tensor            # (B, 12N)
+    y: torch.Tensor            # (B, 32N)
+    rho: torch.Tensor          # (B, 1)
+    D: torch.Tensor            # (B, 12N)
+    E: torch.Tensor            # (B, 32N)
+    c: torch.Tensor            # (B, 1)
+    kinv: torch.Tensor         # (B, 12N, 12N)
+    kinv_rho: torch.Tensor     # (B, 1)
+
+
+def shift_warm_state(state: MPCBatchState, n_steps: int) -> MPCBatchState:
+    """Advance the full-size warm carry one MPC step (gait roll): the
+    primal by 12 a step, the cone duals by 20 and the identity-row duals
+    by 12, and K^-1 by 12 on both axes."""
+    mc = 20 * n_steps
+    y_cone = torch.roll(state.y[:, :mc], -20, dims=1)
+    y_id = torch.roll(state.y[:, mc:], -12, dims=1)
+    return state._replace(
+        f=torch.roll(state.f, -12, dims=1),
+        y=torch.cat([y_cone, y_id], dim=1),
+        kinv=torch.roll(state.kinv, (-12, -12), dims=(1, 2)))
+
+
+def solve_mpc_batch_pallas(cfg: Config, xrefs, fsteps,
+                           state: Optional[MPCBatchState] = None,
+                           settings: Optional[qp.QPSettings] = None,
+                           schedule=None, tile: int = 16,
+                           shift: bool = False, refactor: str = None):
+    """Batched MPC solve on the full-size condensed QP (n = 12N,
+    m = 32N, A the constant cone matrix) through ops/qp_pallas (kernels
+    K2 and K3 on CUDA tensors).
+
+    xrefs (B, 12, N+1); fsteps (B, N_gait, 12); the device of xrefs is
+    where it runs. A cold call (state None) runs Ruiz and the default
+    rho-adaptation schedule. A warm call reuses the preconditioner, rho
+    and K^-1 of `state` and defaults to one 100-iteration round; shift
+    advances the carry one MPC step first. `refactor` is the K^-1 policy
+    of a warm call (ops/qp_pallas.solve): "chol" after a shift, "stale"
+    otherwise, unless given. `tile` is accepted for the JAX package's
+    signature; the kernels take one block per problem. Returns
+    (x_f_applied (B, 24, N), new_state, sol)."""
+    from qrw_tpu_torch.ops import qp_pallas
+    N = cfg.n_steps
+    dtype = torch.float32
+    dev = xrefs.device
+    if settings is None:
+        settings = qp.QPSettings(
+            sigma=cfg.osqp_sigma, alpha=cfg.osqp_alpha, rho=cfg.osqp_rho,
+            eps_abs=1e-4, eps_rel=1e-4, max_iter=cfg.mpc_max_iter,
+            adaptive_rho_interval=cfg.osqp_adaptive_rho_interval,
+            adaptive_rho_tolerance=cfg.osqp_adaptive_rho_tolerance)
+    H, qlin, l, u, Bl, h = build_qp_compact(cfg, xrefs.to(dtype),
+                                            fsteps.to(dtype))
+    A = torch.as_tensor(cone_matrix(N, cfg.mu), dtype=dtype, device=dev)
+    cone = qp.ConeStructure(N, cfg.mu)
+    kw = {}
+    if state is not None:
+        if shift:
+            state = shift_warm_state(state, N)
+        if refactor is None:
+            refactor = "chol" if shift else "stale"
+        kw = dict(x0=state.f, y0=state.y, rho_init=state.rho,
+                  precond=(state.D, state.E, state.c),
+                  kinv_init=state.kinv, kinv_rho=state.kinv_rho,
+                  refactor=refactor)
+        if schedule is None:
+            schedule = [100]
+    sol = qp_pallas.solve(H, qlin, A, l, u, settings, tile=tile,
+                          schedule=schedule, cone=cone, **kw)
+    B = H.shape[0]
+    dx = recover_dx(cfg, Bl, sol.x, h)
+    states = dx.reshape(B, N, 12).transpose(1, 2) + xrefs[:, :, 1:N + 1]
+    forces = sol.x.reshape(B, N, 12).transpose(1, 2)
+    x_f = torch.cat([states, forces], dim=1)                 # (B, 24, N)
+    D, E, c = sol.precond
+    new_state = MPCBatchState(f=sol.x, y=sol.y, rho=sol.rho, D=D, E=E, c=c,
+                              kinv=sol.kinv, kinv_rho=sol.kinv_rho)
+    return x_f, new_state, sol

@@ -1,14 +1,15 @@
 // Fixed-length OSQP ADMM in the original variables, one problem a block.
 //
 // Replaces the TPU kernel qrw_tpu/ops/qp_pallas.py::_admm_kernel (Pallas,
-// launched by qrw_tpu.ops.qp_pallas._run_kernel), without its K_ref
+// launched by qrw_tpu.ops.qp_pallas._run_kernel), with its K_ref
 // (iterative refinement) variant. Per problem, with a per-problem
 // symmetric K^-1 (n x n), a constraint matrix A (m x n) shared by the
 // batch, the diagonal rho' and sigma' and relaxation alpha, exactly
 // `n_iters` steps of
 //
 //   b  = sigma' x - q + A'(rho' z - y)
-//   xt = K^-1 b;  zt = A xt
+//   xt = K^-1 b;  [K_ref: twice r = b - K xt; xt = xt + K^-1 r]
+//   zt = A xt
 //   x  = alpha xt + (1 - alpha) x;  zr = alpha zt + (1 - alpha) z
 //   z  = clip(zr + y * (1 / rho'), l, u);  y = y + rho' (zr - z)
 //
@@ -19,33 +20,48 @@
 //
 // What bounds it on the H100: operations. A problem-iteration is three
 // dense products (A'w and A xt, 2mn flop each, K^-1 b, 2n^2) and a few
-// elementwise passes: ~82 kflop at the rescue's n = 96, m = 160, against
-// K^-1 and P (36.9 kB each) and A (61.4 kB, shared) read once a round.
-// At R = 32 problems and 50 iterations that is 131 Mflop, ~2 us at the
-// card's 67 Tflop/s of float32, and 2.5 MB, ~0.75 us at 3.35 TB/s. In
-// practice it is latency-bound: each iteration is a chain of four
-// dependent phases separated by block barriers, and R = 32 blocks leave
-// most of the 132 SMs idle.
+// elementwise passes: ~82 kflop at the rescue's n = 96, m = 160, ~0.47
+// Mflop at the full n = 192, m = 512, and 8n^2 more with K_ref. At
+// B = 4096 and 50 iterations the full shape is 95.6 Gflop, 1.43 ms at the
+// card's 67 Tflop/s of float32 (2.33 ms with K_ref), against K^-1 and P
+// (147 kB each a problem) read once a round. In practice it is far from
+// that: at the rescue shape each iteration is a chain of dependent phases
+// separated by block barriers, each thread's dot product a serial FMA
+// chain; at the full shape every block also re-reads the shared A from
+// L2 twice an iteration (161 GB a 50-iteration round at B = 4096),
+// which a design that applies A to several problems at once would share.
 //
 // What this first design does about it:
 // * One block per problem, so any batch works with no padding. The block
-//   stages K^-1 and A in dynamic shared memory once (36.9 + 62.1 kB at the
-//   rescue shape) and keeps every vector (x, z, y, l, u, rho', 1/rho',
-//   sigma', q, b, xt, w) in shared memory too: nothing but the final
-//   iterate and the four norms goes back to device memory.
-// * A is stored with a padded row stride n + 1. The row-wise products
+//   stages K^-1 in dynamic shared memory once and keeps every vector (x,
+//   z, y, l, u, rho', 1/rho', sigma', q, b, xt, w, r) in shared memory
+//   too: nothing but the final iterate and the four norms goes back to
+//   device memory.
+// * Where A fits beside them (the rescue's shape: 36.9 + 62.1 kB), A is
+//   staged too, with a padded row stride n + 1: the row-wise products
 //   (z = A xt, thread r walks row r) then touch banks (r + j) mod 32, all
-//   different within a warp; with a stride of n = 96 they would all hit
-//   one bank. The column-wise products (A'w, K^-1 b with K^-1 symmetric:
-//   thread j walks column j) read neighbouring words across a warp.
-// * Exact semantics: l = -inf on four of every five rescue rows stays
-//   -inf through the clip (fmaxf(v, -INFINITY) == v), NaN propagates
-//   through the clip and the norms as it does in jnp.clip / jnp.max,
-//   1 / rho' is a reciprocal computed once and then multiplied, and the
-//   kernel runs every problem, converged or not: the wrapper keeps the
-//   converged flags sticky. Float32 throughout, no fast-math.
-// The full-size shape (n = 192, m = 512) does not fit a block's shared
-// memory this way; the wrapper refuses it.
+//   different within a warp. At the full shape A (393 kB) does not fit
+//   beside K^-1 (147 kB); the block reads the shared A from device
+//   memory, where it stays in L2 because every block reads the same
+//   bytes. The wrapper passes A and a contiguous A', so both products
+//   read neighbouring words across a warp: A'w walks A's columns
+//   (thread j reads A[r][j]), A xt walks A''s columns (thread r reads
+//   A'[j][r]).
+// * K_ref: K (B, n, n) cannot join K^-1 in shared memory; the two
+//   refinement products read the block's own K from device memory by
+//   columns (K symmetric, thread j reads K[i][j]); the resident blocks'
+//   K stays in L2.
+// * The column-wise products (A'w, K^-1 b and K xt by symmetry: thread j
+//   walks column j) read neighbouring words across a warp.
+// * Exact semantics: l = -inf stays -inf through the clip
+//   (fmaxf(v, -INFINITY) == v), NaN propagates through the clip and the
+//   norms as it does in jnp.clip / jnp.max, 1 / rho' is a reciprocal
+//   computed once and then multiplied, and the kernel runs every
+//   problem, converged or not: the wrapper keeps the converged flags
+//   sticky. Float32 throughout, no fast-math.
+// Applying A by its cone structure (A = [F; I], 5 x 3 blocks) is the
+// faster design at the full shape; it computes the same function only
+// when the cone is given, and is left to later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,9 +99,12 @@ __device__ float block_max(float v, float* red) {
   return r;
 }
 
+template <bool A_SMEM>
 __global__ void qp_admm_kernel(Params p, const float* __restrict__ kinv_g,
+                               const float* __restrict__ K_g,
                                const float* __restrict__ P_g,
                                const float* __restrict__ A_g,
+                               const float* __restrict__ At_g,
                                const float* __restrict__ q_g,
                                const float* __restrict__ l_g,
                                const float* __restrict__ u_g,
@@ -98,14 +117,15 @@ __global__ void qp_admm_kernel(Params p, const float* __restrict__ kinv_g,
                                float* __restrict__ res) {
   extern __shared__ float smem[];
   const int n = p.n, m = p.m, lda = n + 1;
-  float* K = smem;               // n * n, K^-1 (symmetric)
-  float* As = K + n * n;         // m * lda, A with a padded row stride
-  float* xs = As + m * lda;      // n
+  float* Ki = smem;              // n * n, K^-1 (symmetric)
+  float* As = Ki + n * n;        // m * lda when staged: A, padded stride
+  float* xs = As + (A_SMEM ? m * lda : 0);  // n
   float* qs = xs + n;            // n
   float* ss = qs + n;            // n, sigma'
   float* bs = ss + n;            // n, right-hand side b
   float* xt = bs + n;            // n
-  float* zs = xt + n;            // m
+  float* rr = xt + n;            // n, refinement residual b - K xt
+  float* zs = rr + n;            // m
   float* ys = zs + m;            // m
   float* ls = ys + m;            // m
   float* us = ls + m;            // m
@@ -118,11 +138,36 @@ __global__ void qp_admm_kernel(Params p, const float* __restrict__ kinv_g,
   const int tid = threadIdx.x, nt = blockDim.x;
   const float alpha = p.alpha, beta = 1.0f - p.alpha;
 
+  // (A v)_r and (A' w)_j, from shared memory or device memory
+  auto arow = [&](int r, const float* v) {
+    float acc = 0.f;
+    if constexpr (A_SMEM) {
+      const float* a = As + r * lda;
+      for (int j = 0; j < n; ++j) acc += a[j] * v[j];
+    } else {
+      const float* a = At_g + r;
+      for (int j = 0; j < n; ++j) acc += a[(size_t)j * m] * v[j];
+    }
+    return acc;
+  };
+  auto acol = [&](int j, const float* w) {
+    float acc = 0.f;
+    if constexpr (A_SMEM) {
+      for (int r = 0; r < m; ++r) acc += As[r * lda + j] * w[r];
+    } else {
+      const float* a = A_g + j;
+      for (int r = 0; r < m; ++r) acc += a[(size_t)r * n] * w[r];
+    }
+    return acc;
+  };
+
   const float* kinv = kinv_g + b * n * n;
-  for (int i = tid; i < n * n; i += nt) K[i] = kinv[i];
-  for (int i = tid; i < m * n; i += nt) {
-    const int r = i / n, c = i - r * n;
-    As[r * lda + c] = A_g[i];
+  for (int i = tid; i < n * n; i += nt) Ki[i] = kinv[i];
+  if constexpr (A_SMEM) {
+    for (int i = tid; i < m * n; i += nt) {
+      const int r = i / n, c = i - r * n;
+      As[r * lda + c] = A_g[i];
+    }
   }
   for (int j = tid; j < n; j += nt) {
     xs[j] = x0_g[b * n + j];
@@ -138,34 +183,40 @@ __global__ void qp_admm_kernel(Params p, const float* __restrict__ kinv_g,
   }
   __syncthreads();
 
-  for (int r = tid; r < m; r += nt) {          // z = A x0
-    const float* a = As + r * lda;
-    float acc = 0.f;
-    for (int j = 0; j < n; ++j) acc += a[j] * xs[j];
-    zs[r] = acc;
-  }
+  for (int r = tid; r < m; r += nt) zs[r] = arow(r, xs);   // z = A x0
   __syncthreads();
 
+  const float* Kb = K_g ? K_g + b * n * n : nullptr;
   for (int it = 0; it < p.n_iters; ++it) {
     for (int r = tid; r < m; r += nt) ws[r] = rs[r] * zs[r] - ys[r];
     __syncthreads();
-    for (int j = tid; j < n; j += nt) {        // b = sigma' x - q + A'w
-      float acc = 0.f;
-      for (int r = 0; r < m; ++r) acc += As[r * lda + j] * ws[r];
-      bs[j] = (ss[j] * xs[j] - qs[j]) + acc;
-    }
+    for (int j = tid; j < n; j += nt)          // b = sigma' x - q + A'w
+      bs[j] = (ss[j] * xs[j] - qs[j]) + acol(j, ws);
     __syncthreads();
     for (int j = tid; j < n; j += nt) {        // xt = K^-1 b, column j
       float acc = 0.f;
-      for (int i = 0; i < n; ++i) acc += K[i * n + j] * bs[i];
+      for (int i = 0; i < n; ++i) acc += Ki[i * n + j] * bs[i];
       xt[j] = acc;
+    }
+    if (Kb) {                                  // K_ref: two refinements
+      for (int s = 0; s < 2; ++s) {
+        __syncthreads();
+        for (int j = tid; j < n; j += nt) {    // r = b - K xt, column j
+          float acc = 0.f;
+          for (int i = 0; i < n; ++i) acc += Kb[(size_t)i * n + j] * xt[i];
+          rr[j] = bs[j] - acc;
+        }
+        __syncthreads();
+        for (int j = tid; j < n; j += nt) {    // xt = xt + K^-1 r
+          float acc = 0.f;
+          for (int i = 0; i < n; ++i) acc += Ki[i * n + j] * rr[i];
+          xt[j] = xt[j] + acc;
+        }
+      }
     }
     __syncthreads();
     for (int r = tid; r < m; r += nt) {        // zt = A xt; z, y updates
-      const float* a = As + r * lda;
-      float acc = 0.f;
-      for (int j = 0; j < n; ++j) acc += a[j] * xt[j];
-      const float zr = alpha * acc + beta * zs[r];
+      const float zr = alpha * arow(r, xt) + beta * zs[r];
       const float y = ys[r];
       const float zn = clip_nan(zr + y * ri[r], ls[r], us[r]);
       ys[r] = y + rs[r] * (zr - zn);
@@ -178,9 +229,7 @@ __global__ void qp_admm_kernel(Params p, const float* __restrict__ kinv_g,
   // residual pass: A x and its norms (rows), P x and A'y (columns)
   float pri = 0.f, nax = 0.f, nz = 0.f;
   for (int r = tid; r < m; r += nt) {
-    const float* a = As + r * lda;
-    float acc = 0.f;
-    for (int j = 0; j < n; ++j) acc += a[j] * xs[j];
+    const float acc = arow(r, xs);
     pri = nan_max(pri, fabsf(acc - zs[r]));
     nax = nan_max(nax, fabsf(acc));
     nz = nan_max(nz, fabsf(zs[r]));
@@ -190,8 +239,8 @@ __global__ void qp_admm_kernel(Params p, const float* __restrict__ kinv_g,
   float dua = 0.f, npx = 0.f, naty = 0.f;
   const float* P = P_g + b * n * n;
   for (int j = tid; j < n; j += nt) {
-    float aty = 0.f, px = 0.f;
-    for (int r = 0; r < m; ++r) aty += As[r * lda + j] * ys[r];
+    const float aty = acol(j, ys);
+    float px = 0.f;
     for (int i = 0; i < n; ++i) px += P[(size_t)i * n + j] * xs[i];
     dua = nan_max(dua, fabsf((px + qs[j]) + aty));
     npx = nan_max(npx, fabsf(px));
@@ -210,9 +259,22 @@ __global__ void qp_admm_kernel(Params p, const float* __restrict__ kinv_g,
   }
 }
 
-size_t smem_bytes(int n, int m) {
+size_t smem_bytes(int n, int m, bool stage_A) {
   const size_t nn = n, mm = m;
-  return sizeof(float) * (nn * nn + mm * (nn + 1) + 5 * nn + 7 * mm + 32);
+  return sizeof(float) *
+         (nn * nn + (stage_A ? mm * (nn + 1) : 0) + 6 * nn + 7 * mm + 32);
+}
+
+int max_smem_bytes() {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return v;
+}
+
+// A is staged in shared memory where it fits beside K^-1 and the vectors
+bool stages_A(int n, int m) {
+  return smem_bytes(n, m, true) <= (size_t)max_smem_bytes();
 }
 
 int block_threads(int n, int m) {
@@ -221,37 +283,56 @@ int block_threads(int n, int m) {
   return t > 1024 ? 1024 : t;
 }
 
+template <bool A_SMEM>
+int launch(const Params& p, size_t smem, cudaStream_t stream,
+           const float* kinv, const float* K, const float* P, const float* A,
+           const float* At, const float* q, const float* l, const float* u,
+           const float* rho, const float* sig, const float* x0,
+           const float* y0, float* x, float* y, float* z, float* res) {
+  cudaError_t e = cudaFuncSetAttribute(
+      qp_admm_kernel<A_SMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  qp_admm_kernel<A_SMEM><<<p.B, block_threads(p.n, p.m), smem, stream>>>(
+      p, kinv, K, P, A, At, q, l, u, rho, sig, x0, y0, x, y, z, res);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int qrw_qp_admm_smem_bytes(int n, int m) { return (int)smem_bytes(n, m); }
+// 1 if the kernel stages A in shared memory at this shape (then At is not
+// read), 0 if it reads A and At from device memory
+int qrw_qp_admm_stages_A(int n, int m) { return stages_A(n, m) ? 1 : 0; }
 
-int qrw_qp_admm_max_smem_bytes() {
-  int dev = 0, v = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return v;
+// dynamic shared memory of a block at this shape
+int qrw_qp_admm_smem_bytes(int n, int m) {
+  return (int)smem_bytes(n, m, stages_A(n, m));
 }
 
-// All pointers are device pointers: Kinv, P (B, n, n); A (m, n); q, sig,
-// x0, x (B, n); l, u, rho, y0, y, z (B, m); res (4, B) rows pri, dua, n1,
-// n2. Launches on `stream` and returns cudaGetLastError().
-int qrw_qp_admm_solve(const float* kinv, const float* P, const float* A,
-                      const float* q, const float* l, const float* u,
-                      const float* rho, const float* sig, const float* x0,
-                      const float* y0, float* x, float* y, float* z,
-                      float* res, int B, int n, int m, int n_iters,
-                      float alpha, void* stream) {
+int qrw_qp_admm_max_smem_bytes() { return max_smem_bytes(); }
+
+// All pointers are device pointers: Kinv, K, P (B, n, n); A (m, n); At
+// (n, m), A transposed, read only where A is not staged; q, sig, x0, x
+// (B, n); l, u, rho, y0, y, z (B, m); res (4, B) rows pri, dua, n1, n2.
+// K may be NULL: no refinement. Launches on `stream` and returns
+// cudaGetLastError().
+int qrw_qp_admm_solve(const float* kinv, const float* K, const float* P,
+                      const float* A, const float* At, const float* q,
+                      const float* l, const float* u, const float* rho,
+                      const float* sig, const float* x0, const float* y0,
+                      float* x, float* y, float* z, float* res, int B, int n,
+                      int m, int n_iters, float alpha, void* stream) {
   Params p;
   p.B = B; p.n = n; p.m = m; p.n_iters = n_iters; p.alpha = alpha;
-  const size_t smem = smem_bytes(n, m);
-  cudaError_t e = cudaFuncSetAttribute(
-      qp_admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  qp_admm_kernel<<<B, block_threads(n, m), smem, (cudaStream_t)stream>>>(
-      p, kinv, P, A, q, l, u, rho, sig, x0, y0, x, y, z, res);
-  return (int)cudaGetLastError();
+  const bool stage = stages_A(n, m);
+  const size_t smem = smem_bytes(n, m, stage);
+  cudaStream_t s = (cudaStream_t)stream;
+  return stage ? launch<true>(p, smem, s, kinv, K, P, A, At, q, l, u, rho,
+                              sig, x0, y0, x, y, z, res)
+               : launch<false>(p, smem, s, kinv, K, P, A, At, q, l, u, rho,
+                               sig, x0, y0, x, y, z, res);
 }
 
 }  // extern "C"

@@ -1,29 +1,31 @@
-"""Batched OSQP-semantics QP solve around kernel K2 (the rescue solver).
+"""Batched OSQP-semantics QP solve around kernels K2 and K3.
 
 Port of qrw_tpu/ops/qp_pallas.py (`solve`, `_build_K`, `_chol_inv`,
-`_run_kernel`). The math is the JAX package's:
+`_ns_refine`, `_factor`, `_run_kernel`). The math is the JAX package's:
 
 * the constraint matrix A (m, n) is SHARED across the batch, so the
   preconditioned ADMM runs in the ORIGINAL variables: Ruiz scaling
   (D, E, c) enters only as the diagonal sigma' = (sigma / c) D^-2 and
   rho' = (1 / c) E^2 rho_class;
-* per round, K = P + diag(sigma') + A' diag(rho') A is factored fresh
-  (batched Cholesky, plain PyTorch as it was plain JAX) and K^-1 goes to
-  the kernel, which runs exactly `n_iters` ADMM steps and one residual
-  pass;
+* per round, K = P + diag(sigma') + A' diag(rho') A is assembled and
+  K^-1 obtained by `_factor`: a fresh batched Cholesky (plain PyTorch, as
+  it was plain JAX), or, on the first round of a warm call, a guarded
+  Newton-Schulz refinement of the carried inverse (kernel K3) with a
+  fixed-capacity Cholesky fallback for the worst seeds;
+* the ADMM kernel K2 runs exactly `n_iters` steps and one residual pass;
+  under refactor="stale" it applies two iterative-refinement steps
+  against K itself to every x-update;
 * between rounds (not after the last one) OSQP's residual-based rho
   adaptation; converged flags are sticky and iterations are counted only
   for problems still open, while the kernel keeps iterating every
   problem, converged or not;
 * `early_exit` skips the remaining rounds once every problem passes.
 
-`_run_kernel` is the dispatcher: CUDA tensors go to the hand-written
-kernel in qrw_tpu_torch/csrc/qp_admm.cu, CPU tensors to
-`_run_kernel_plain`, the same equations in plain PyTorch. A CUDA tensor
-never falls back to the plain version. The warm-refactor branches of the
-full-size path (`kinv_init` with refactor "ns", Newton-Schulz refinement
-in kernel K3, or "stale", the kernel's refinement variant) are not
-ported yet and raise NotImplementedError.
+`_run_kernel` and `_ns_refine` are the dispatchers: CUDA tensors go to
+the hand-written kernels in qrw_tpu_torch/csrc/qp_admm.cu and
+qrw_tpu_torch/csrc/qp_ns_refine.cu, CPU tensors to `_run_kernel_plain`
+and `_ns_refine_plain`, the same equations in plain PyTorch. A CUDA
+tensor never falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -36,10 +38,11 @@ import torch
 
 from qrw_tpu_torch.ops import qp
 
-# Counts launches of the CUDA kernel (one per ADMM round on CUDA
-# tensors). chip_smoke.py resets it before a run of the main path and
-# reads it after.
+# Launches of the CUDA kernels on CUDA tensors: K2 (one per ADMM round)
+# and K3 (one per Newton-Schulz refinement in `_factor`). chip_smoke.py
+# resets them before a run of the main path and reads them after.
 KERNEL_LAUNCHES = 0
+NS_KERNEL_LAUNCHES = 0
 
 
 class PallasQPResult(NamedTuple):
@@ -102,15 +105,73 @@ def _chol_inv(K):
     return torch.cholesky_solve(eye.expand(K.shape), C)
 
 
+def _ns_refine_plain(K, X0, ns_iters: int):
+    """Plain PyTorch version of K3: `ns_iters` Newton-Schulz steps
+    X <- 2X - X (K X) from X0, then resid = max|K X - I| per problem
+    (NaN propagates, as jnp.max does). K, X0 (B, n, n). Returns (X,
+    resid (B,)), X not yet re-centred."""
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    X = X0
+    for _ in range(int(ns_iters)):
+        KX = torch.matmul(K, X)
+        X = 2.0 * X - torch.matmul(X, KX)
+    KX = torch.matmul(K, X)
+    return X, torch.amax(torch.abs(KX - eye), dim=(1, 2))
+
+
+def _ns_refine(K, X0, ns_iters: int):
+    """(X_refined, resid): kernel K3 for CUDA tensors, its plain version
+    for CPU tensors, ValueError elsewhere. X is re-centred as
+    0.5 (X + X') afterwards, as the JAX package does outside its
+    kernel."""
+    if K.device.type == "cpu":
+        X, resid = _ns_refine_plain(K, X0, ns_iters)
+    elif K.device.type == "cuda":
+        X, resid = _ns_launch(K.contiguous(), X0.contiguous(), ns_iters)
+    else:
+        raise ValueError(f"qp_pallas: unsupported device {K.device}")
+    return 0.5 * (X + X.transpose(1, 2)), resid
+
+
+def _factor(K, kinv_init=None, ns_iters: int = 3, seed_scale=None):
+    """K^-1 of the assembled KKT matrices K (B, n, n). Cold: Cholesky
+    and a solve. Warm (kinv_init given): the seed, scaled by seed_scale
+    (B, 1) = rho_old / rho_new, is refined by `ns_iters` Newton-Schulz
+    steps (K3); a problem whose residual max|K X - I| is not finite or
+    above 1e-2 is bad. The `cap` = min(B, max(8, B // 32)) largest
+    residuals are refactored by Cholesky (always computed, as in the JAX
+    package, with no host read) and the bad ones among them take it;
+    bad problems beyond the capacity keep their refined seed. The top-k
+    is a stable sort on -resid, so ties (inf, the usual case when seeds
+    diverge) keep the lower index first, as jax.lax.top_k does."""
+    if kinv_init is None:
+        return _chol_inv(K)
+    B = K.shape[0]
+    X = kinv_init
+    if seed_scale is not None:
+        X = X * seed_scale[:, :, None]
+    X, resid = _ns_refine(K, X, ns_iters)
+    resid = torch.where(torch.isfinite(resid), resid,
+                        torch.full_like(resid, float("inf")))
+    bad = resid > 1e-2
+    cap = int(min(B, max(8, B // 32)))
+    idx = torch.argsort(-resid, stable=True)[:cap]
+    Xr = _chol_inv(K[idx])
+    X[idx] = torch.where(bad[idx][:, None, None], Xr, X[idx])
+    return X
+
+
 def _amax_abs(v):
     """Infinity norm of each row; NaN propagates (as jnp.max does)."""
     return torch.amax(torch.abs(v), dim=1)
 
 
 def _run_kernel_plain(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw,
-                      alpha: float, n_iters: int):
+                      alpha: float, n_iters: int, K=None):
     """Plain PyTorch version of the kernel: exactly `n_iters` ADMM steps
-    from (xw, yw), then the residual norms. All (B, .) float32. Returns
+    from (xw, yw), then the residual norms. All (B, .) float32. With K
+    (B, n, n), the KKT matrix itself, every x-update takes two
+    iterative-refinement steps r = b - K xt; xt += K^-1 r. Returns
     (x, y, z, pri, dua, n1, n2)."""
     rho_inv = 1.0 / rho_vec
     Amul = lambda v: torch.einsum("bn,mn->bm", v, A)
@@ -120,6 +181,15 @@ def _run_kernel_plain(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw,
     for _ in range(int(n_iters)):
         b = sig_vec * x - q + Atmul(rho_vec * z - y)
         xt = torch.einsum("bij,bi->bj", Kinv, b)      # K^-1 symmetric
+        if K is not None:
+            # r is a small difference of large terms, and its rounding
+            # sets the refinement's noise floor: an elementwise product
+            # and a reduction, as the JAX kernel writes it. On an H100 a
+            # batched product (einsum) rounded it 2.7x worse and the
+            # "stale" policy converged 0.89 of the problems, not 0.996.
+            for _ in range(2):
+                r = b - (K * xt[:, :, None]).sum(dim=1)
+                xt = xt + torch.einsum("bij,bi->bj", Kinv, r)
         zt = Amul(xt)
         xn = alpha * xt + (1.0 - alpha) * x
         zr = alpha * zt + (1.0 - alpha) * z
@@ -150,12 +220,16 @@ def _cfunc():
     lib = kernels.library()
     fn = lib.qrw_qp_admm_solve
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 14 + [_I] * 4 + [_F] + [_P]
+        fn.argtypes = [_P] * 16 + [_I] * 4 + [_F] + [_P]
         fn.restype = _I
+        lib.qrw_qp_admm_stages_A.argtypes = [_I, _I]
+        lib.qrw_qp_admm_stages_A.restype = _I
         lib.qrw_qp_admm_smem_bytes.argtypes = [_I, _I]
         lib.qrw_qp_admm_smem_bytes.restype = _I
         lib.qrw_qp_admm_max_smem_bytes.argtypes = []
         lib.qrw_qp_admm_max_smem_bytes.restype = _I
+        lib.qrw_ns_refine.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        lib.qrw_ns_refine.restype = _I
     return lib
 
 
@@ -174,19 +248,23 @@ def _check(name, t, shape, device):
 
 
 def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
-            n_iters: int):
-    """Launch the kernel on the current stream: one block per problem.
-    Returns (x, y, z, pri, dua, n1, n2)."""
+            n_iters: int, K=None):
+    """Launch K2 on the current stream: one block per problem. Where A
+    does not fit a block's shared memory beside K^-1 (n = 192, m = 512),
+    the kernel reads A and a contiguous A' from device memory. Returns
+    (x, y, z, pri, dua, n1, n2)."""
     global KERNEL_LAUNCHES
     B, n = q.shape
     m = A.shape[0]
     dev = q.device
-    for name, t, shape in [("Kinv", Kinv, (B, n, n)), ("P", P, (B, n, n)),
-                           ("A", A, (m, n)), ("q", q, (B, n)),
-                           ("l", l, (B, m)), ("u", u, (B, m)),
-                           ("rho_vec", rho_vec, (B, m)),
-                           ("sig_vec", sig_vec, (B, n)), ("x0", xw, (B, n)),
-                           ("y0", yw, (B, m))]:
+    checks = [("Kinv", Kinv, (B, n, n)), ("P", P, (B, n, n)),
+              ("A", A, (m, n)), ("q", q, (B, n)), ("l", l, (B, m)),
+              ("u", u, (B, m)), ("rho_vec", rho_vec, (B, m)),
+              ("sig_vec", sig_vec, (B, n)), ("x0", xw, (B, n)),
+              ("y0", yw, (B, m))]
+    if K is not None:
+        checks.append(("K", K, (B, n, n)))
+    for name, t, shape in checks:
         _check(name, t, shape, dev)
     if B < 1 or B > 2 ** 31 - 1:
         raise ValueError(f"batch {B} out of range")
@@ -197,6 +275,7 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
         raise ValueError(f"qp_admm kernel needs {need} B of shared memory "
                          f"per block at n={n}, m={m}; the card offers "
                          f"{have}")
+    At = A if lib.qrw_qp_admm_stages_A(n, m) else A.t().contiguous()
     f32 = torch.float32
     x = torch.empty((B, n), dtype=f32, device=dev)
     y = torch.empty((B, m), dtype=f32, device=dev)
@@ -204,32 +283,61 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
     res = torch.empty((4, B), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.qrw_qp_admm_solve(
-        Kinv.data_ptr(), P.data_ptr(), A.data_ptr(), q.data_ptr(),
-        l.data_ptr(), u.data_ptr(), rho_vec.data_ptr(), sig_vec.data_ptr(),
-        xw.data_ptr(), yw.data_ptr(), x.data_ptr(), y.data_ptr(),
-        z.data_ptr(), res.data_ptr(), B, n, m, int(n_iters), float(alpha),
-        stream)
+        Kinv.data_ptr(), None if K is None else K.data_ptr(), P.data_ptr(),
+        A.data_ptr(), At.data_ptr(), q.data_ptr(), l.data_ptr(),
+        u.data_ptr(), rho_vec.data_ptr(), sig_vec.data_ptr(), xw.data_ptr(),
+        yw.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+        res.data_ptr(), B, n, m, int(n_iters), float(alpha), stream)
     if err != 0:
         raise RuntimeError(f"qp_admm kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES += 1
     return x, y, z, res[0], res[1], res[2], res[3]
 
 
+def _ns_launch(K, X0, ns_iters: int):
+    """Launch K3 on the current stream: one block per problem, with a
+    (B, 2, n, n) scratch for K X and the ping-pong iterate. Returns (X,
+    resid)."""
+    global NS_KERNEL_LAUNCHES
+    B, n = K.shape[0], K.shape[-1]
+    dev = K.device
+    _check("K", K, (B, n, n), dev)
+    _check("X0", X0, (B, n, n), dev)
+    if B < 1 or B > 2 ** 31 - 1:
+        raise ValueError(f"batch {B} out of range")
+    if ns_iters < 0:
+        raise ValueError(f"ns_iters {ns_iters} < 0")
+    lib = _cfunc()
+    f32 = torch.float32
+    X = torch.empty((B, n, n), dtype=f32, device=dev)
+    scratch = torch.empty((B, 2, n, n), dtype=f32, device=dev)
+    resid = torch.empty((B,), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.qrw_ns_refine(K.data_ptr(), X0.data_ptr(), X.data_ptr(),
+                            scratch.data_ptr(), resid.data_ptr(), B, n,
+                            int(ns_iters), stream)
+    if err != 0:
+        raise RuntimeError(f"ns_refine kernel launch failed: CUDA error "
+                           f"{err}")
+    NS_KERNEL_LAUNCHES += 1
+    return X, resid
+
+
 def _run_kernel(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw,
-                alpha: float, n_iters: int, tile: int = 16):
+                alpha: float, n_iters: int, tile: int = 16, K=None):
     """One round of `n_iters` ADMM steps: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. `tile` is the JAX
-    package's problems per grid step; the kernel takes one block per
-    problem and ignores it."""
+    tensors, the plain version for CPU tensors. With K, the refinement
+    variant. `tile` is the JAX package's problems per grid step; the
+    kernel takes one block per problem and ignores it."""
     del tile
     if q.device.type == "cpu":
         return _run_kernel_plain(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw,
-                                 yw, alpha, n_iters)
+                                 yw, alpha, n_iters, K=K)
     if q.device.type != "cuda":
         raise ValueError(f"qp_pallas: unsupported device {q.device}")
-    c = lambda t: t.contiguous()
+    c = lambda t: None if t is None else t.contiguous()
     return _launch(c(Kinv), c(P), c(A), c(q), c(l), c(u), c(rho_vec),
-                   c(sig_vec), c(xw), c(yw), alpha, n_iters)
+                   c(sig_vec), c(xw), c(yw), alpha, n_iters, K=c(K))
 
 
 def precondition(P, q, A, l, u, s: qp.QPSettings, precond=None):
@@ -256,8 +364,9 @@ def precondition(P, q, A, l, u, s: qp.QPSettings, precond=None):
 def solve(P, q, A, l, u, settings: qp.QPSettings = qp.QPSettings(),
           x0=None, y0=None, tile: int = 16, schedule=None,
           cone=None, precond=None, rho_init=None, kinv_init=None,
-          refactor: str = "ns", early_exit: bool = False) -> PallasQPResult:
-    """Batched QP solve with OSQP semantics, one kernel launch a round.
+          kinv_rho=None, refactor: str = "ns",
+          early_exit: bool = False) -> PallasQPResult:
+    """Batched QP solve with OSQP semantics, one K2 launch a round.
 
     P (B, n, n); q (B, n); A (m, n) SHARED across the batch; l/u (B, m).
     `schedule` is the per-round iteration budget (default: 50, then
@@ -267,10 +376,19 @@ def solve(P, q, A, l, u, settings: qp.QPSettings = qp.QPSettings(),
     starts (non-finite entries reset to zero). With `early_exit`, rounds
     after the first are skipped once every problem has converged (one
     host read a round). The device of q decides where it runs: the
-    kernel on CUDA, its plain version on the CPU, ValueError elsewhere.
-    A seed inverse `kinv_init` is ignored under refactor="chol" (a fresh
-    Cholesky every round, as always) and raises NotImplementedError
-    under "ns" and "stale", the full-size path's policies.
+    kernels on CUDA, their plain versions on the CPU, ValueError
+    elsewhere.
+
+    `refactor` says how round 0 of a warm call (kinv_init given, the
+    previous K^-1, factored at kinv_rho) obtains K^-1:
+      "ns"    the seed, scaled by kinv_rho / rho, refined by Newton-Schulz
+              (K3) with the guarded Cholesky fallback of `_factor`;
+      "chol"  a fresh Cholesky, ignoring the seed;
+      "stale" the scaled seed through `_factor` with zero Newton-Schulz
+              steps (the residual guard and the fallback only), then K2
+              with two refinement steps against K per x-update.
+    Later rounds, and every round of a cold call, factor fresh. The
+    returned kinv_rho is the rho at which the last K^-1 was taken.
     """
     if not torch.is_tensor(q):
         raise TypeError("q must be a tensor")
@@ -278,12 +396,6 @@ def solve(P, q, A, l, u, settings: qp.QPSettings = qp.QPSettings(),
         raise ValueError(f"qp_pallas.solve: unsupported device {q.device}")
     if refactor not in ("ns", "chol", "stale"):
         raise ValueError(f"unknown refactor policy {refactor!r}")
-    if kinv_init is not None and refactor != "chol":
-        raise NotImplementedError(
-            f"refactor={refactor!r} from kinv_init (the Newton-Schulz "
-            "kernel K3, or the stale inverse with in-kernel refinement) "
-            "belongs to the full-size path, which is not ported yet")
-    del kinv_init                   # "chol" refactors fresh every round
     dev, f32 = q.device, torch.float32
     P, q, A, l, u = (t.to(dev, f32) for t in (P, q, A, l, u))
     if A.dim() != 2:
@@ -316,10 +428,18 @@ def solve(P, q, A, l, u, settings: qp.QPSettings = qp.QPSettings(),
         if early_exit and r > 0 and bool(conv.all()):
             break       # converged flags are sticky: every later round skips
         rho_vec = rho_to_vec(rho)
-        Kinv = _chol_inv(_build_K(P, A, rho_vec, sig_vec, cone))
+        K = _build_K(P, A, rho_vec, sig_vec, cone)
+        seeded = r == 0 and kinv_init is not None and refactor != "chol"
+        stale = seeded and refactor == "stale"
+        if seeded:
+            scale = None if kinv_rho is None else kinv_rho.to(dev, f32) / rho
+            Kinv = _factor(K, kinv_init.to(dev, f32),
+                           ns_iters=0 if stale else 3, seed_scale=scale)
+        else:
+            Kinv = _chol_inv(K)
         x, y, z, pri, dua, n1, n2 = _run_kernel(
             Kinv, P, A, q, l, u, rho_vec, sig_vec, x, y, s.alpha, n_iters,
-            tile=tile)
+            tile=tile, K=K if stale else None)
         eps_p = s.eps_abs + s.eps_rel * n1
         eps_d = s.eps_abs + s.eps_rel * torch.maximum(n2, nrm_q)
         iters = iters + torch.where(conv, 0, int(n_iters)).to(torch.int32)

@@ -4,10 +4,9 @@ Importing any qrw_tpu_torch module must import neither jax nor any
 module of the JAX package qrw_tpu (the port runs on a machine without
 them); its copies of qrw_tpu's configuration and robot model must equal
 the originals. Branches the port does not cover yet (Kalman estimator,
-terrain, DDP MPC, the full-size solver's warm refactorization, other CLI
-modes) raise instead of taking another path, and a fleet asked for on
-CUDA raises on a host without a card instead of continuing on the
-CPU."""
+terrain, DDP MPC, other CLI modes) raise instead of taking another path,
+and a fleet asked for on CUDA raises on a host without a card instead of
+continuing on the CPU."""
 
 import dataclasses
 import os
@@ -121,6 +120,8 @@ def test_kernel_dispatch_has_no_fallback():
     P = torch.zeros((2, 96, 96), device="meta")
     with pytest.raises(ValueError, match="device"):
         qp_pallas.solve(P, q[:, :2].T, q[:, :2], q, q)
+    with pytest.raises(ValueError, match="device"):
+        qp_pallas._ns_refine(P, P, 3)
     if shutil.which("nvcc") is None and not os.path.exists(
             "/usr/local/cuda/bin/nvcc"):
         with pytest.raises(RuntimeError, match="nvcc"):
@@ -128,26 +129,35 @@ def test_kernel_dispatch_has_no_fallback():
 
 
 def test_warm_refactorization_raises():
-    """The full-size path's warm refactorization from kinv_init
-    (Newton-Schulz, kernel K3, and the stale inverse) is not ported:
-    asking for it raises. refactor="chol" ignores the seed and factors
-    fresh, as in the JAX package; an unknown policy is refused."""
+    """The warm refactorization from kinv_init runs under every policy:
+    "ns" (Newton-Schulz, K3's plain version here) and "stale" (the
+    guarded seed with K2's refinement variant) agree with "chol" (a
+    fresh Cholesky) on a tiny QP and carry the rho of their factor; an
+    unknown policy raises."""
     from qrw_tpu_torch.ops import qp_pallas
     P = torch.eye(3).expand(2, 3, 3) * 2.0
     q = torch.ones((2, 3))
     A = torch.eye(3)
-    for refactor in ("ns", "stale"):
-        with pytest.raises(NotImplementedError, match="K3"):
-            qp_pallas.solve(P, q, A, q - 2, q + 2, kinv_init=P,
-                            refactor=refactor)
     with pytest.raises(ValueError, match="refactor"):
         qp_pallas.solve(P, q, A, q - 2, q + 2, refactor="newton")
-    chol = qp_pallas.solve(P, q, A, q - 2, q + 2, kinv_init=P,
-                           refactor="chol")
-    plain = qp_pallas.solve(P, q, A, q - 2, q + 2)
-    np.testing.assert_array_equal(chol.x.numpy(), plain.x.numpy())
-    assert bool(plain.converged.all())
-    np.testing.assert_allclose(plain.x.numpy(), -0.5, atol=1e-3)
+    cold = qp_pallas.solve(P, q, A, q - 2, q + 2)
+    assert bool(cold.converged.all())
+    np.testing.assert_allclose(cold.x.numpy(), -0.5, atol=1e-3)
+    warm = {}
+    for refactor in ("ns", "stale", "chol"):
+        warm[refactor] = qp_pallas.solve(
+            P, q * 1.01, A, q - 2, q + 2, x0=cold.x, y0=cold.y,
+            rho_init=cold.rho, precond=cold.precond, kinv_init=cold.kinv,
+            kinv_rho=cold.kinv_rho, schedule=[50], refactor=refactor)
+        assert bool(warm[refactor].converged.all()), refactor
+        np.testing.assert_array_equal(warm[refactor].kinv_rho.numpy(),
+                                      cold.rho.numpy())
+    for refactor in ("ns", "stale"):
+        np.testing.assert_allclose(warm[refactor].x.numpy(),
+                                   warm["chol"].x.numpy(), atol=1e-6)
+        np.testing.assert_allclose(warm[refactor].kinv.numpy(),
+                                   warm["chol"].kinv.numpy(), atol=1e-5)
+    np.testing.assert_allclose(warm["chol"].x.numpy(), -0.505, atol=1e-3)
 
 
 def test_config_copy_equals_jax_package():
