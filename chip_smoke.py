@@ -10,21 +10,30 @@ Phases (any failure ends the run with a non-zero exit):
    version on the card: the bench's phase-sorted trot batch at B = 1024,
    tile 128, cold and warm, stop_at_eps off and on. Converged flags and
    iteration counts must be equal, x / y / z close. Both are timed with
-   CUDA events (median of 7 windows, with the spread).
+   CUDA events (median of 7 windows, with the spread). The launch
+   geometry is printed first: the grid, the cluster (blocks a tile) and
+   the SMs the launch covers.
 3. Kernel K2 (qrw_tpu_torch/csrc/qp_admm.cu) against its plain version
    on the card, on rescue problems assembled as
    core/mpc.solve_mpc_batch_reduced assembles them from the same phase
    batch, at R = 32 and R = 128 problems: one 50-iteration round cold
-   and warm, and the whole rescue solve (schedule [50, 150, 150, 100],
-   early exit) from a cold-restart and from a warm carry. Flags and
-   iteration counts must be equal, x / y / z close; timed as in 2.
+   and warm (its cone variant, which applies A by its structure, and its
+   dense variant, which reads A), and the whole rescue solve (schedule
+   [50, 150, 150, 100], early exit) from a cold-restart and from a warm
+   carry. Flags and iteration counts must be equal, x / y / z close;
+   both variants timed as in 2. Then, at both shapes (R = 128, n = 96
+   and B = 1024, n = 192), the cone variant against the dense variant:
+   rounds of 0 and 1 iterations that only the A products shape must be
+   equal bit for bit; and whole solves from NaN- and inf-poisoned warm
+   starts, kernel path against plain path, flags and counts equal.
 4. The rescue stage firing on the main path: a B = 1024 fleet through
    the entry point's functions at the CLI's rescue capacity (32), a few
    normal cycles, ONE crippled cycle (a 1-iteration phase solve, so
    every lane fails) in which exactly 32 lanes come back converged
    through K2, then recovery cycles: upright, no latch, convergence
    above the bar. Both kernels' counts are set to 0 just before this
-   run and read just after it; K2 must have launched.
+   run and read just after it; K2 must have launched, and only its cone
+   variant.
 5. The closed-loop trot fleet through qrw_tpu_torch.runtime.main
    .run_fleet at the CLI defaults: B = 1024, 10 cycles = 100 ticks,
    rescue capacity 32. All heights finite, no latch, every robot upright
@@ -52,7 +61,8 @@ Phases (any failure ends the run with a non-zero exit):
 10. The entry point at full width: qrw_tpu_torch.eval.kernel_profile at
    B = 4096, reps 5, tiles 16. Cold and warm-"ns" conv >= 0.99, K2 and
    K3 launch counts as worked out (counts set to 0 just before, read
-   just after), then one call per policy with every output finite.
+   just after; no launch of K2's dense variant), then one call per
+   policy with every output finite.
 
 The second-to-last line of output is one JSON object describing the
 kernels, the line before it the card's name and power limit; the last
@@ -199,6 +209,27 @@ def k2_work(R, n, m, n_iters, k_ref=False):
     return flops, nbytes
 
 
+def k2_cone_work(R, n, m, n_iters, cone, k_ref=False):
+    """Operations and bytes of one K2 launch when A is the cone matrix,
+    the least work for the function: per problem-iteration K^-1 b (2n^2),
+    the two structured products A'w and A xt (2 flop for each of the 9
+    nonzeros of a 5 x 3 block, and 1 an identity row) and the elementwise
+    updates, with k_ref 8n^2 + 4n more; plus z = A x0 and the residual
+    pass (A x, A'y, P x); bytes: K^-1 and P (and K) per problem, the
+    vectors in and out, no A."""
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    desc = qpp.cone_description(cone)
+    a_prod = 18 * desc.n_blocks + (n if desc.kind == qpp.CONE_FULL else 0)
+    per_it = 2 * n * n + 2 * a_prod + 12 * m + 6 * n
+    if k_ref:
+        per_it += 8 * n * n + 4 * n
+    once = a_prod + (2 * a_prod + 2 * n * n + 4 * m + 4 * n)
+    flops = R * (n_iters * per_it + once)
+    mats = 3 if k_ref else 2
+    nbytes = 4 * R * (mats * n * n + 3 * n + 4 * m + n + 2 * m + 4)
+    return flops, nbytes
+
+
 def k3_work(B, n, ns_iters):
     """Operations and bytes of one K3 launch: 2 ns_iters + 1 products of
     n x n matrices (2 n^3 each) and the 2 n^2 of the update and the
@@ -255,11 +286,23 @@ def time_ms(fn, windows=7, reps=1):
 
 def check_kernel(cfg, ps, device, B, tile):
     """Phase 2. Returns (max_abs_err, (ms, lo, hi), (plain_ms, lo, hi),
-    (bound_ms, bound_by)) of the main path's configuration (warm,
-    stop_at_eps on)."""
+    (bound_ms, bound_by), extra) of the main path's configuration (warm,
+    stop_at_eps on); extra holds the launch geometry and the warm
+    stop_at_eps-off time."""
     from qrw_tpu_torch.core import mpc_lane as ml
     from qrw_tpu_torch.ops import qp_phase
 
+    geo = qp_phase.launch_geometry(ps.cap, tile, B)
+    n_cl = qp_phase.max_active_clusters(tile, B, ps.cap)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = min(geo.grid, n_cl * geo.cluster)     # one block an SM
+    log(f"K1 launch geometry B={B} tile={tile}: grid {geo.grid} blocks in "
+        f"clusters of {geo.cluster} (one cluster a tile), "
+        f"{geo.problems_per_block} problems and {geo.threads} threads a "
+        f"block, {geo.smem_bytes} B of shared memory a block; the card "
+        f"holds {n_cl} such clusters at once: {sms} of {n_sm} SMs covered")
+    assert sms >= min(geo.grid, 64), f"K1 covers {sms} SMs"
+    extra = {"grid": geo.grid, "cluster": geo.cluster, "sms": sms}
     n_phases = B // tile
     phase_ids = [(2 * i) % cfg.n_steps for i in range(n_phases)]
     xr, fs = phase_batch(cfg, phase_ids, tile, np.random.default_rng(0))
@@ -315,7 +358,9 @@ def check_kernel(cfg, ps, device, B, tile):
                 timing = (k_ms, p_ms, bound(*k1_work(
                     B, ps.cap, ps.data.Kbar_inv.shape[0], tile, got.iters,
                     got.converged)))
-    return worst, timing[0], timing[1], timing[2]
+            elif warm:
+                extra["stop_off_ms"] = k_ms[0]
+    return worst, timing[0], timing[1], timing[2], extra
 
 
 def rescue_problems(cfg, R, device, shift=0.0):
@@ -353,7 +398,7 @@ def check_rescue_kernel(cfg, device):
     s = ml.default_rescue_settings()
     kernel_round = qpp._run_kernel
 
-    def plain_round(*args, tile=16, K=None):
+    def plain_round(*args, tile=16, K=None, cone=None):
         return qpp._run_kernel_plain(*args, K=K)
 
     def solve_with(round_fn, *args, **kw):
@@ -363,7 +408,7 @@ def check_rescue_kernel(cfg, device):
         finally:
             qpp._run_kernel = kernel_round
 
-    worst, out = 0.0, None
+    worst, out, variants = 0.0, None, {}
     for R in RESCUE_R:
         H, q, A, l, u, cone = rescue_problems(cfg, R, device)
         H2, q2, _, _, _, _ = rescue_problems(cfg, R, device, shift=0.001)
@@ -388,8 +433,9 @@ def check_rescue_kernel(cfg, device):
             Kinv, rho_vec, sig = round_inputs(P_, q_, A, l, u, cone, s, rho)
             args = (Kinv, P_, A, q_, l, u, rho_vec, sig, x0, y0, s.alpha,
                     RESCUE_SCHEDULE[0])
-            rounds.append((name, args, kernel_round(*args),
-                           qpp._run_kernel_plain(*args)))
+            rounds.append((name, args, kernel_round(*args, cone=cone),
+                           qpp._run_kernel_plain(*args),
+                           kernel_round(*args)))
         torch.cuda.synchronize()
         for name, got, want in [("solve cold-restart", cold, cold_p),
                                 ("solve warm", warm, warm_p)]:
@@ -414,30 +460,42 @@ def check_rescue_kernel(cfg, device):
                 f"[{float(rr.min()):.4f}, {float(rr.max()):.4f}]")
             assert n_conv == 0, f"{n_conv} converged flags differ"
             assert n_it == 0, f"{n_it} iteration counts differ"
-        for name, args, got, want in rounds:
+        for name, args, got, want, dense in rounds:
             errs = []
-            for f, g, w in zip(("x", "y", "z"), got[:3], want[:3]):
+            for f, g, w, d in zip(("x", "y", "z"), got[:3], want[:3],
+                                  dense[:3]):
                 assert torch.isfinite(g).all(), f"K2 round {f} not finite"
                 e = float((g - w).abs().max())
+                e_d = float((d - w).abs().max())
                 errs.append(e)
                 worst = max(worst, e)
                 lim = REL_TOL * max(1.0, float(w.abs().max()))
                 assert e <= lim, f"K2 round R={R} {f}: {e:.3e} > {lim:.3e}"
+                assert e_d <= lim, f"K2 dense R={R} {f}: {e_d:.3e} > {lim:.3e}"
             flag = lambda r: ((r[3] <= s.eps_abs + s.eps_rel * r[5])
                               & (r[4] <= s.eps_abs + s.eps_rel * torch.maximum(
                                   r[6], args[3].abs().amax(dim=1))))
             n_flag = int((flag(got) != flag(want)).sum())
-            k_ms = time_ms(lambda: kernel_round(*args), reps=5)
+            n_flag_d = int((flag(dense) != flag(want)).sum())
+            k_ms = time_ms(lambda: kernel_round(*args, cone=cone), reps=5)
+            d_ms = time_ms(lambda: kernel_round(*args), reps=5)
             p_ms = time_ms(lambda: qpp._run_kernel_plain(*args))
-            b = bound(*k2_work(R, n, m, RESCUE_SCHEDULE[0]))
+            b = bound(*k2_cone_work(R, n, m, RESCUE_SCHEDULE[0], cone))
+            b_d = bound(*k2_work(R, n, m, RESCUE_SCHEDULE[0]))
             log(f"K2 qp_admm R={R} one {RESCUE_SCHEDULE[0]}-iteration round "
-                f"{name}: converged kernel {int(flag(got).sum())} plain "
-                f"{int(flag(want).sum())} (mismatches {n_flag}); max|dx| "
-                f"{errs[0]:.2e} max|dy| {errs[1]:.2e} max|dz| {errs[2]:.2e}; "
-                f"kernel {k_ms[0]:.4f} ms [{k_ms[1]:.4f}, {k_ms[2]:.4f}] "
-                f"plain {p_ms[0]:.3f} ms [{p_ms[1]:.3f}, {p_ms[2]:.3f}]; "
-                f"bound {b[0]:.5f} ms ({b[1]})")
+                f"{name}: converged cone kernel {int(flag(got).sum())} plain "
+                f"{int(flag(want).sum())} (mismatches {n_flag}, dense "
+                f"kernel {n_flag_d}); max|dx| {errs[0]:.2e} max|dy| "
+                f"{errs[1]:.2e} max|dz| {errs[2]:.2e}; cone kernel "
+                f"{k_ms[0]:.4f} ms [{k_ms[1]:.4f}, {k_ms[2]:.4f}] (bound "
+                f"{b[0]:.5f} ms, {b[1]}), dense kernel {d_ms[0]:.4f} ms "
+                f"[{d_ms[1]:.4f}, {d_ms[2]:.4f}] (bound {b_d[0]:.5f} ms), "
+                f"plain {p_ms[0]:.3f} ms [{p_ms[1]:.3f}, {p_ms[2]:.3f}]")
             assert n_flag == 0, f"{n_flag} round flags differ"
+            assert n_flag_d == 0, f"{n_flag_d} dense round flags differ"
+            if name == "warm":
+                variants[R] = {"cone": variant(k_ms, b),
+                               "dense": variant(d_ms, b_d)}
             if R == RESCUE_R[0] and name == "warm":
                 out = (k_ms, p_ms, b)
         k_ms = time_ms(lambda: solve_with(kernel_round, H2, q2, A, l, u, s,
@@ -448,7 +506,109 @@ def check_rescue_kernel(cfg, device):
             f"rounds): with the kernel {k_ms[0]:.3f} ms [{k_ms[1]:.3f}, "
             f"{k_ms[2]:.3f}], with the plain version {p_ms[0]:.3f} ms "
             f"[{p_ms[1]:.3f}, {p_ms[2]:.3f}]")
-    return (worst,) + out
+    return (worst,) + out + (variants,)
+
+
+def variant(ms, b):
+    """A kernel variant's entry of the kernels line: time, bound, share."""
+    return {"ms": ms[0], "bound_ms": b[0], "bound_by": b[1],
+            "share": b[0] / ms[0]}
+
+
+def check_cone_bits(cfg, device):
+    """Phase 3b: K2's cone variant against its dense variant on the same
+    inputs, at both shapes. Rounds of 0 and 1 iterations (and 1 with
+    K_ref) with K^-1 = K = I, P = 0, sigma' = q = 0 and alpha = 1, so that
+    z = A x0 (0 iterations) and x = A'(-y0) (1 iteration from x0 = 0) and
+    every other output are made by the A products alone: all must be
+    equal bit for bit on these finite inputs. Then one real 50-iteration
+    round: the two variants' largest difference."""
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    rng = np.random.default_rng(7)
+    for label, (H, q, A, l, u, cone) in [
+            ("R=128 n=96 m=160", rescue_problems(cfg, 128, device)),
+            (f"B={FULL_B} n=192 m=512", full_problems(cfg, FULL_B, device))]:
+        B, n = q.shape
+        m = A.shape[0]
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        eye = torch.eye(n, device=device).expand(B, n, n).contiguous()
+        P0 = torch.zeros((B, n, n), device=device)
+        z_n = torch.zeros((B, n), device=device)
+        rho = t(rng.uniform(0.05, 2.0, (B, m)))
+        x0 = t(rng.normal(scale=10.0, size=(B, n)))
+        y0 = t(rng.normal(scale=10.0, size=(B, m)))
+        n_out = 0
+        for iters, xw, Kr in ((0, x0, None), (1, z_n, None), (1, z_n, eye)):
+            args = (eye, P0, A, z_n, l, u, rho, z_n, xw, y0, 1.0, iters)
+            got = qpp._run_kernel(*args, K=Kr, cone=cone)
+            want = qpp._run_kernel(*args, K=Kr)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert bool(torch.isfinite(w).all()), "non-finite output"
+                n_diff = int((g != w).sum())
+                assert n_diff == 0, (f"cone vs dense {label} {iters} it: "
+                                     f"{n_diff} outputs differ")
+                n_out += g.numel()
+        # z = A x0 against the float64 product, as a check of the inputs
+        z64 = x0.double() @ A.double().T
+        got0 = qpp._run_kernel(eye, P0, A, z_n, l, u, rho, z_n, x0, y0, 1.0,
+                               0, cone=cone)
+        e64 = float((got0[2].double() - z64).abs().max())
+        # a real round: the two variants sum K^-1 b in different orders
+        s = full_settings()
+        Kinv, rho_vec, sig = round_inputs(H, q, A, l, u, cone, s, torch.full(
+            (B, 1), s.rho, device=device))
+        args = (Kinv, H, A, q, l, u, rho_vec, sig, torch.zeros_like(q),
+                torch.zeros_like(l), s.alpha, 50)
+        got = qpp._run_kernel(*args, cone=cone)
+        want = qpp._run_kernel(*args)
+        torch.cuda.synchronize()
+        errs = [float((g - w).abs().max()) for g, w in zip(got[:3], want[:3])]
+        scale = max(1.0, max(float(w.abs().max()) for w in want[:3]))
+        log(f"K2 cone vs dense {label}: rounds of 0, 1 and 1 (K_ref) "
+            f"iterations through the A products alone: {n_out} outputs, "
+            f"all bit-equal; |A x0 - float64| {e64:.2e}; a real 50-iteration "
+            f"round: max|dx| {errs[0]:.2e} max|dy| {errs[1]:.2e} max|dz| "
+            f"{errs[2]:.2e} (scale {scale:.3g})")
+        assert max(errs) <= REL_TOL * scale, f"cone vs dense round {errs}"
+
+
+def check_cone_nonfinite(cfg, device):
+    """Phase 3c: whole solves from a NaN-poisoned and an inf-poisoned warm
+    start, K2's cone path against the plain path, at both shapes: solve
+    resets the non-finite entries to zero, so converged flags and
+    iteration counts must agree as on a clean start."""
+    from qrw_tpu_torch.core import mpc_lane as ml
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    H, q, A, l, u, cone = rescue_problems(cfg, RESCUE_R[0], device)
+    rs = ml.default_rescue_settings()
+    R = q.shape[0]
+    rescue = (f"R={R} n=96 rescue solve", (H, q, A, l, u), rs,
+              dict(cone=cone, schedule=RESCUE_SCHEDULE, early_exit=True,
+                   rho_init=torch.full((R, 1), rs.rho, device=device)),
+              torch.zeros_like(q), torch.zeros_like(l))
+    fs = full_settings()
+    H, q, A, l, u, cone = full_problems(cfg, FULL_B, device)
+    with solver_path("kernel"):
+        cold = qpp.solve(H, q, A, l, u, fs, cone=cone)
+    full = (f"B={FULL_B} n=192 warm \"chol\" solve", (H, q, A, l, u), fs,
+            dict(cone=cone, schedule=[50], rho_init=cold.rho,
+                 precond=cold.precond, kinv_init=cold.kinv,
+                 kinv_rho=cold.kinv_rho, refactor="chol"),
+            cold.x, cold.y)
+    for label, prob, s, kw, x0, y0 in (rescue, full):
+        for poison in (float("nan"), float("inf")):
+            xp, yp = x0.clone(), y0.clone()
+            xp[::3, 0] = poison
+            xp[1::3, -1] = -poison
+            yp[::2, 1] = poison
+            with solver_path("kernel") as kp:
+                got = qpp.solve(*prob, s, x0=xp, y0=yp, **kw)
+            with solver_path("plain") as pp:
+                want = qpp.solve(*prob, s, x0=xp, y0=yp, **kw)
+            torch.cuda.synchronize()
+            compare_solves(f"K2 cone {label} from a {poison}-poisoned warm "
+                           f"start", got, want, kp, pp, SOLVE_TOL)
 
 
 def run_rescue_path(cfg, device):
@@ -468,6 +628,7 @@ def run_rescue_path(cfg, device):
     torch.cuda.synchronize()
     qp_phase.KERNEL_LAUNCHES = 0
     qp_pallas.KERNEL_LAUNCHES = 0
+    qp_pallas.DENSE_KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     carry, l1, c1 = fl.fleet_rollout(ctl, carry, n_norm, ps, n_iters=300,
                                      **kw)
@@ -478,6 +639,7 @@ def run_rescue_path(cfg, device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2 = qp_phase.KERNEL_LAUNCHES, qp_pallas.KERNEL_LAUNCHES
+    k2_dense = qp_pallas.DENSE_KERNEL_LAUNCHES
     conv = [c.converged.float().mean(dim=1).cpu().numpy() for c in
             (c1, c2, c3)]
     n_conv_crip = int(c2.converged.sum())
@@ -492,12 +654,14 @@ def run_rescue_path(cfg, device):
         f"{np.round(conv[1], 4).tolist()} ({n_conv_crip} lanes converged) "
         f"recovery {np.round(conv[2], 4).tolist()}; lanes rescued per "
         f"cycle {rescued.tolist()}; K2 launches {k2} ({k2_crip} in the "
-        f"crippled cycle), K1 launches {k1}; final height mean "
+        f"crippled cycle; {k2_dense} of the dense variant), K1 launches "
+        f"{k1}; final height mean "
         f"{h[-1].mean():.4f} min {h[-1].min():.4f}; latched "
         f"{int(err.any(axis=0).sum())}")
     assert n_conv_crip == cap, f"{n_conv_crip} lanes rescued, not {cap}"
     assert int(c2.rescued[0]) == cap
     assert k2_crip >= 1, "K2 did not launch in the crippled cycle"
+    assert k2_dense == 0, f"{k2_dense} launches of K2's dense variant"
     assert k1 == n_cyc, f"{k1} K1 launches for {n_cyc} cycles"
     assert np.isfinite(h).all(), "non-finite base height"
     assert not err.any(), "security latch"
@@ -654,7 +818,7 @@ class solver_path:
             return X, resid
         qpp._ns_refine = record
         if self.which == "plain":
-            qpp._run_kernel = lambda *a, tile=16, K=None: \
+            qpp._run_kernel = lambda *a, tile=16, K=None, cone=None: \
                 qpp._run_kernel_plain(*a, K=K)
         return self
 
@@ -831,26 +995,32 @@ def check_full_kernel(cfg, device):
                                            cold.y), K2)]
     for name, args, Kr in rounds:
         args = args + (s.alpha, 50)
-        got = qpp._run_kernel(*args, K=Kr)
+        got = qpp._run_kernel(*args, K=Kr, cone=cone)
         want = qpp._run_kernel_plain(*args, K=Kr)
+        dense = qpp._run_kernel(*args, K=Kr)
         torch.cuda.synchronize()
         errs = []
-        for f, g, w in zip(("x", "y", "z"), got[:3], want[:3]):
+        for f, g, w, d in zip(("x", "y", "z"), got[:3], want[:3], dense[:3]):
             assert torch.isfinite(g).all(), f"K2 full round {f} not finite"
             e = float((g - w).abs().max())
+            e_d = float((d - w).abs().max())
             errs.append(e)
             worst = max(worst, e)
             lim = REL_TOL * max(1.0, float(w.abs().max()))
             assert e <= lim, f"K2 full round {name} {f}: {e:.3e} > {lim:.3e}"
+            assert e_d <= lim, f"K2 dense {name} {f}: {e_d:.3e} > {lim:.3e}"
         flag = lambda r: ((r[3] <= s.eps_abs + s.eps_rel * r[5])
                           & (r[4] <= s.eps_abs + s.eps_rel * torch.maximum(
                               r[6], args[3].abs().amax(dim=1))))
         n_flag = int((flag(got) != flag(want)).sum())
+        n_flag_d = int((flag(dense) != flag(want)).sum())
         log(f"K2 qp_admm B={FULL_B} n=192 m=512 one 50-iteration round "
-            f"{name}: converged kernel {int(flag(got).sum())} plain "
-            f"{int(flag(want).sum())} (mismatches {n_flag}); max|dx| "
-            f"{errs[0]:.2e} max|dy| {errs[1]:.2e} max|dz| {errs[2]:.2e}")
+            f"{name}: converged cone kernel {int(flag(got).sum())} plain "
+            f"{int(flag(want).sum())} (mismatches {n_flag}, dense kernel "
+            f"{n_flag_d}); max|dx| {errs[0]:.2e} max|dy| {errs[1]:.2e} "
+            f"max|dz| {errs[2]:.2e}")
         assert n_flag == 0, f"{n_flag} round flags differ"
+        assert n_flag_d == 0, f"{n_flag_d} dense round flags differ"
     # timings at the entry point's batch: a round from zero, and K_ref
     H, q, A, l, u, cone = full_problems(cfg, FULL_TIME_B, device)
     K, rho_vec, sig = full_kkt(H, q, A, l, u, cone)
@@ -858,18 +1028,37 @@ def check_full_kernel(cfg, device):
     args = (Kinv, H, A, q, l, u, rho_vec, sig, torch.zeros_like(q),
             torch.zeros_like(l), s.alpha, 50)
     n, m = q.shape[1], A.shape[0]
-    out = []
+    out, variants = [], {}
     for name, Kr in (("plain", None), ("K_ref", K)):
-        k_ms = time_ms(lambda: qpp._run_kernel(*args, K=Kr))
+        kr = Kr is not None
+        k_ms = time_ms(lambda: qpp._run_kernel(*args, K=Kr, cone=cone))
+        d_ms = time_ms(lambda: qpp._run_kernel(*args, K=Kr))
         p_ms = time_ms(lambda: qpp._run_kernel_plain(*args, K=Kr))
-        b = bound(*k2_work(FULL_TIME_B, n, m, 50, k_ref=Kr is not None))
+        b = bound(*k2_cone_work(FULL_TIME_B, n, m, 50, cone, k_ref=kr))
+        b_d = bound(*k2_work(FULL_TIME_B, n, m, 50, k_ref=kr))
         log(f"K2 qp_admm B={FULL_TIME_B} n=192 m=512 one 50-iteration round "
-            f"({name}): kernel {k_ms[0]:.3f} ms [{k_ms[1]:.3f}, "
-            f"{k_ms[2]:.3f}] plain {p_ms[0]:.3f} ms [{p_ms[1]:.3f}, "
-            f"{p_ms[2]:.3f}] (median [min, max] of 7 windows); bound "
-            f"{b[0]:.4f} ms ({b[1]})")
+            f"({name}): cone kernel {k_ms[0]:.3f} ms [{k_ms[1]:.3f}, "
+            f"{k_ms[2]:.3f}] (cone bound {b[0]:.4f} ms, {b[1]}: "
+            f"{100 * b[0] / k_ms[0]:.1f}%; dense bound {b_d[0]:.4f} ms: "
+            f"{100 * b_d[0] / k_ms[0]:.1f}%), dense kernel {d_ms[0]:.3f} ms "
+            f"[{d_ms[1]:.3f}, {d_ms[2]:.3f}] ({100 * b_d[0] / d_ms[0]:.2f}% "
+            f"of the dense bound), plain {p_ms[0]:.3f} ms [{p_ms[1]:.3f}, "
+            f"{p_ms[2]:.3f}] (median [min, max] of 7 windows); cone "
+            f"{d_ms[0] / k_ms[0]:.1f}x faster than dense")
         out.append((k_ms, p_ms, b))
-    return (worst,) + out[0] + (out[1],)
+        key = "_k_ref" if kr else ""
+        variants["cone" + key] = variant(k_ms, b)
+        variants["dense" + key] = variant(d_ms, b_d)
+        # the cone round's cost split: one iteration against fifty
+        one = time_ms(lambda: qpp._run_kernel(*args[:-1], 1, K=Kr,
+                                              cone=cone))
+        per_it = (k_ms[0] - one[0]) / 49
+        log(f"K2 cone B={FULL_TIME_B} ({name}): a 1-iteration round "
+            f"{one[0]:.3f} ms [{one[1]:.3f}, {one[2]:.3f}], so "
+            f"{1e3 * per_it:.2f} us an iteration and "
+            f"{one[0] - per_it:.3f} ms a launch outside the iterations")
+        variants["cone" + key]["one_iteration_ms"] = one[0]
+    return (worst,) + out[0] + (out[1], variants)
 
 
 def check_full_path(cfg, device):
@@ -935,16 +1124,19 @@ def run_entry_point(cfg, device, argv=PROFILE_ARGV):
     tiles = argv[argv.index("--tiles") + 1:]
     torch.cuda.synchronize()
     qp_pallas.KERNEL_LAUNCHES = 0
+    qp_pallas.DENSE_KERNEL_LAUNCHES = 0
     qp_pallas.NS_KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     res = kernel_profile.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k2, k3 = qp_pallas.KERNEL_LAUNCHES, qp_pallas.NS_KERNEL_LAUNCHES
+    k2_dense = qp_pallas.DENSE_KERNEL_LAUNCHES
     log(f"entry point python -m qrw_tpu_torch.eval.kernel_profile "
-        f"{' '.join(argv)}: {wall:.2f} s; K2 launches {k2}, K3 launches "
-        f"{k3}")
+        f"{' '.join(argv)}: {wall:.2f} s; K2 launches {k2} ({k2_dense} of "
+        f"the dense variant), K3 launches {k3}")
     log(json.dumps(res))
+    assert k2_dense == 0, f"{k2_dense} launches of K2's dense variant"
     assert k2 == PROFILE_K2_LAUNCHES * len(tiles), f"{k2} K2 launches"
     assert k3 == PROFILE_K3_LAUNCHES * len(tiles), f"{k3} K3 launches"
     for tile in tiles:
@@ -999,13 +1191,18 @@ def main() -> int:
     cfg = Config()
     ps = ml.build_phase_data(cfg, ml.trot_phase_fsteps(cfg), device=device)
 
-    err, k_ms, p_ms, k_bound = check_kernel(cfg, ps, device, B_KERNEL, TILE)
-    err2, k2_ms, p2_ms, k2_bound = check_rescue_kernel(cfg, device)
+    err, k_ms, p_ms, k_bound, k1_geo = check_kernel(cfg, ps, device,
+                                                    B_KERNEL, TILE)
+    err2, k2_ms, p2_ms, k2_bound, k2_variants = check_rescue_kernel(cfg,
+                                                                    device)
+    check_cone_bits(cfg, device)
+    check_cone_nonfinite(cfg, device)
     k2_launches = run_rescue_path(cfg, device)
     launches, _ = run_main_path(cfg, device)
     check_slice(cfg, ps, device)
     err3, k3_ms, p3_ms, k3_bound, k3_ns0 = check_ns_kernel(cfg, device)
-    err4, k4_ms, p4_ms, k4_bound, k4_ref = check_full_kernel(cfg, device)
+    err4, k4_ms, p4_ms, k4_bound, k4_ref, k4_variants = check_full_kernel(
+        cfg, device)
     check_full_path(cfg, device)
     k2_full, k3_launches, _ = run_entry_point(cfg, device)
 
@@ -1015,13 +1212,14 @@ def main() -> int:
         "replaces": "qrw_tpu/ops/qp_phase.py:233",
         "launches": launches, "max_abs_err": err,
         "ms": k_ms[0], "plain_ms": p_ms[0], "bound_ms": k_bound[0],
-        "bound_by": k_bound[1], "library_ms": None}, {
+        "bound_by": k_bound[1], "library_ms": None, **k1_geo}, {
         "name": "qp_admm", "route": "cuda",
         "source": "qrw_tpu_torch/csrc/qp_admm.cu",
         "replaces": "qrw_tpu/ops/qp_pallas.py:55",
         "launches": k2_launches, "max_abs_err": err2,
         "ms": k2_ms[0], "plain_ms": p2_ms[0], "bound_ms": k2_bound[0],
-        "bound_by": k2_bound[1], "library_ms": None}, {
+        "bound_by": k2_bound[1], "library_ms": None,
+        "variants": {f"R{R}": v for R, v in k2_variants.items()}}, {
         "name": "qp_admm_full", "route": "cuda",
         "source": "qrw_tpu_torch/csrc/qp_admm.cu",
         "replaces": "qrw_tpu/ops/qp_pallas.py:55",
@@ -1029,7 +1227,7 @@ def main() -> int:
         "ms": k4_ms[0], "plain_ms": p4_ms[0], "bound_ms": k4_bound[0],
         "bound_by": k4_bound[1], "library_ms": None,
         "k_ref_ms": k4_ref[0][0], "k_ref_plain_ms": k4_ref[1][0],
-        "k_ref_bound_ms": k4_ref[2][0]}, {
+        "k_ref_bound_ms": k4_ref[2][0], "variants": k4_variants}, {
         "name": "qp_ns_refine", "route": "cuda",
         "source": "qrw_tpu_torch/csrc/qp_ns_refine.cu",
         "replaces": "qrw_tpu/ops/qp_pallas.py:194",

@@ -392,7 +392,9 @@ def solve_mpc_batch_pallas(cfg: Config, xrefs, fsteps,
     advances the carry one MPC step first. `refactor` is the K^-1 policy
     of a warm call (ops/qp_pallas.solve): "chol" after a shift, "stale"
     otherwise, unless given. `tile` is accepted for the JAX package's
-    signature; the kernels take one block per problem. Returns
+    signature and not used: K2 takes one block per problem (its cone
+    variant, which this path runs, 4n threads with K^-1 in registers) and
+    K3 one block per problem. Returns
     (x_f_applied (B, 24, N), new_state, sol)."""
     from qrw_tpu_torch.ops import qp_pallas
     N = cfg.n_steps

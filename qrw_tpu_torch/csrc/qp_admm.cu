@@ -18,20 +18,42 @@
 // n2 = max(|P x|, |A'y|). The wrapper (qrw_tpu_torch/ops/qp_pallas.py)
 // applies the termination test and the rho adaptation between rounds.
 //
-// What bounds it on the H100: operations. A problem-iteration is three
-// dense products (A'w and A xt, 2mn flop each, K^-1 b, 2n^2) and a few
-// elementwise passes: ~82 kflop at the rescue's n = 96, m = 160, ~0.47
-// Mflop at the full n = 192, m = 512, and 8n^2 more with K_ref. At
-// B = 4096 and 50 iterations the full shape is 95.6 Gflop, 1.43 ms at the
-// card's 67 Tflop/s of float32 (2.33 ms with K_ref), against K^-1 and P
-// (147 kB each a problem) read once a round. In practice it is far from
-// that: at the rescue shape each iteration is a chain of dependent phases
-// separated by block barriers, each thread's dot product a serial FMA
-// chain; at the full shape every block also re-reads the shared A from
-// L2 twice an iteration (161 GB a 50-iteration round at B = 4096),
-// which a design that applies A to several problems at once would share.
+// Two variants. The cone variant (qp_admm_cone_kernel) runs whenever the
+// caller gives the cone structure of A, as every system path does; the
+// dense variant (qp_admm_kernel) takes a general shared A and serves the
+// `solve` API with cone=None.
 //
-// What this first design does about it:
+// What bounds it on the H100. Given the cone, A is 9 nonzeros a 5 x 3
+// block (plus identity rows), so a problem-iteration is one product
+// K^-1 b (2n^2 flop, 74 kflop at n = 192) and ~1.3k flop of structured
+// A'w, A xt and elementwise passes; K_ref adds two K xt and two K^-1 r
+// products. K^-1 and P (and K) are read once a launch: 1.2 GB at
+// B = 4096, n = 192 (1.8 GB with K), 0.36 ms at the H100 SXM's published
+// 3.35 TB/s, which bounds a 50-iteration round; with K_ref the
+// operations (~1.15 ms at its published 67 Tflop/s of float32) bound
+// it. The dense variant re-reads the shared A
+// from L2 twice an iteration (161 GB a 50-iteration round at B = 4096,
+// n = 192, m = 512): it is bound by that traffic and by serial FMA
+// chains, and no system path runs it.
+//
+// What the cone design does about it:
+// * A is applied by its structure and read from nowhere: the kernel
+//   gets the kind, the block count (n / 3) and mu, and each output takes
+//   its nonzero terms in the dense loops' order, so z = A x and A'w are
+//   the dense variant's bits on finite inputs.
+// * One block of 4n threads per problem; K^-1 stays resident in
+//   registers for the whole launch (thread g n + j holds column j of a
+//   quarter of the rows: 48 registers at n = 192), so the product is 48
+//   FMAs a thread from registers plus a fixed-order sum of four
+//   partials, instead of a 192-long chain streamed from shared memory.
+// * K_ref keeps K resident in shared memory beside the vectors (147 kB
+//   at n = 192): the two refinement products stay on the SM, read
+//   conflict-free by columns. r = b - K xt stays the JAX kernel's
+//   products-then-reduction form, as partial sums.
+// * Barriers only between dependent passes: b, the K^-1 partials, their
+//   combination, and the z, y, x updates (four a plain iteration).
+//
+// The dense design:
 // * One block per problem, so any batch works with no padding. The block
 //   stages K^-1 in dynamic shared memory once and keeps every vector (x,
 //   z, y, l, u, rho', 1/rho', sigma', q, b, xt, w, r) in shared memory
@@ -49,19 +71,16 @@
 //   A'[j][r]).
 // * K_ref: K (B, n, n) cannot join K^-1 in shared memory; the two
 //   refinement products read the block's own K from device memory by
-//   columns (K symmetric, thread j reads K[i][j]); the resident blocks'
-//   K stays in L2.
+//   columns (K symmetric, thread j reads K[i][j]).
 // * The column-wise products (A'w, K^-1 b and K xt by symmetry: thread j
 //   walks column j) read neighbouring words across a warp.
-// * Exact semantics: l = -inf stays -inf through the clip
-//   (fmaxf(v, -INFINITY) == v), NaN propagates through the clip and the
-//   norms as it does in jnp.clip / jnp.max, 1 / rho' is a reciprocal
-//   computed once and then multiplied, and the kernel runs every
-//   problem, converged or not: the wrapper keeps the converged flags
-//   sticky. Float32 throughout, no fast-math.
-// Applying A by its cone structure (A = [F; I], 5 x 3 blocks) is the
-// faster design at the full shape; it computes the same function only
-// when the cone is given, and is left to later work.
+//
+// Both variants keep the exact semantics: l = -inf stays -inf through
+// the clip (fmaxf(v, -INFINITY) == v), NaN propagates through the clip
+// and the norms as it does in jnp.clip / jnp.max, 1 / rho' is a
+// reciprocal computed once and then multiplied, and the kernel runs every
+// problem, converged or not: the wrapper keeps the converged flags
+// sticky. Float32 FMAs throughout, no TF32, no fast-math.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -298,6 +317,252 @@ int launch(const Params& p, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
+// --------------------------------------------------------------------
+// The cone variant: A applied by its structure
+// --------------------------------------------------------------------
+//
+// A = [I_nb (x) C; I_n] (FULL, ConeStructure: nb = 4N friction blocks
+// over the 12N activation identity rows) or A = I_nb (x) C
+// (ReducedConeStructure), nb = n / 3, C the 5 x 3 pyramid
+// [1 0 -mu; -1 0 -mu; 0 1 -mu; 0 -1 -mu; 0 0 -1]. Each output takes its
+// nonzero terms as FMAs from 0 in increasing index order, as the dense
+// loops above take every term: fma(0, v, acc) == acc on finite v and the
+// accumulator is never -0, so z = A x and A'w are the dense kernel's
+// bits.
+
+// (A v)_r; cm = -mu as the float32 entry of A
+template <int N, bool FULL>
+__device__ __forceinline__ float cone_row(int r, const float* v, float cm) {
+  constexpr int MF = 5 * (N / 3);  // friction rows
+  float acc = 0.f;
+  if (FULL && r >= MF) return fmaf(1.f, v[r - MF], acc);
+  const int b = r / 5, t = r - 5 * b;
+  const float* vb = v + 3 * b;
+  switch (t) {
+    case 0: acc = fmaf(1.f, vb[0], acc); return fmaf(cm, vb[2], acc);
+    case 1: acc = fmaf(-1.f, vb[0], acc); return fmaf(cm, vb[2], acc);
+    case 2: acc = fmaf(1.f, vb[1], acc); return fmaf(cm, vb[2], acc);
+    case 3: acc = fmaf(-1.f, vb[1], acc); return fmaf(cm, vb[2], acc);
+    default: return fmaf(-1.f, vb[2], acc);
+  }
+}
+
+// (A' w)_j with w(r) the r-th entry of w: the column's five friction
+// rows, then (FULL) its identity row
+template <int N, bool FULL, class W>
+__device__ __forceinline__ float cone_col(int j, W w, float cm) {
+  constexpr int MF = 5 * (N / 3);
+  const int b = j / 3, c = j - 3 * b, r0 = 5 * b;
+  float acc = 0.f;
+  if (c == 0) {
+    acc = fmaf(1.f, w(r0), acc);
+    acc = fmaf(-1.f, w(r0 + 1), acc);
+  } else if (c == 1) {
+    acc = fmaf(1.f, w(r0 + 2), acc);
+    acc = fmaf(-1.f, w(r0 + 3), acc);
+  } else {
+    acc = fmaf(cm, w(r0), acc);
+    acc = fmaf(cm, w(r0 + 1), acc);
+    acc = fmaf(cm, w(r0 + 2), acc);
+    acc = fmaf(cm, w(r0 + 3), acc);
+    acc = fmaf(-1.f, w(r0 + 4), acc);
+  }
+  if (FULL) acc = fmaf(1.f, w(MF + j), acc);
+  return acc;
+}
+
+// One block of 4N threads per problem. Thread t = g N + j holds the
+// column-j entries of rows [g R, g R + R) of K^-1 (R = N / 4) in
+// registers for the whole launch; a product K^-1 v is then R FMAs a
+// thread from registers, four partial sums a column combined in a fixed
+// order ((p0 + p1) + p2) + p3. With KREF, K sits in shared memory
+// (n x n, conflict-free: lane j reads column j) and the two refinement
+// products r = b - K xt take the same partial-sum form.
+template <int N, bool FULL, bool KREF>
+__global__ void __launch_bounds__(4 * N, 1)
+qp_admm_cone_kernel(Params p, float mu, const float* __restrict__ kinv_g,
+                    const float* __restrict__ K_g,
+                    const float* __restrict__ P_g,
+                    const float* __restrict__ q_g,
+                    const float* __restrict__ l_g,
+                    const float* __restrict__ u_g,
+                    const float* __restrict__ rho_g,
+                    const float* __restrict__ sig_g,
+                    const float* __restrict__ x0_g,
+                    const float* __restrict__ y0_g,
+                    float* __restrict__ X, float* __restrict__ Y,
+                    float* __restrict__ Z, float* __restrict__ res) {
+  constexpr int n = N, m = FULL ? 8 * N / 3 : 5 * N / 3, R = N / 4;
+  constexpr int T = 4 * N;
+  extern __shared__ float smem[];
+  float* Ks = smem;                     // n * n with KREF
+  float* xs = Ks + (KREF ? n * n : 0);  // n
+  float* qs = xs + n;                   // n
+  float* ss = qs + n;                   // n, sigma'
+  float* bs = ss + n;                   // n, right-hand side b
+  float* xt = bs + n;                   // n
+  float* rr = xt + n;                   // n, refinement residual
+  float* part = rr + n;                 // 4n, partial sums
+  float* zs = part + 4 * n;             // m
+  float* ys = zs + m;                   // m
+  float* ls = ys + m;                   // m
+  float* us = ls + m;                   // m
+  float* rs = us + m;                   // m, rho'
+  float* ri = rs + m;                   // m, 1 / rho'
+  float* red = ri + m;                  // 32, block reductions
+
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x, g = tid / n, j = tid - g * n;
+  const float alpha = p.alpha, beta = 1.0f - p.alpha, cm = -mu;
+
+  float kr[R];
+  const float* kinv = kinv_g + b * n * n + (size_t)g * R * n + j;
+#pragma unroll
+  for (int k = 0; k < R; ++k) kr[k] = kinv[(size_t)k * n];
+  if constexpr (KREF) {
+    const float4* K4 = reinterpret_cast<const float4*>(K_g + b * n * n);
+    float4* Ks4 = reinterpret_cast<float4*>(Ks);
+    for (int i = tid; i < n * n / 4; i += T) Ks4[i] = K4[i];
+  }
+  for (int i = tid; i < n; i += T) {
+    xs[i] = x0_g[b * n + i];
+    qs[i] = q_g[b * n + i];
+    ss[i] = sig_g[b * n + i];
+  }
+  for (int r = tid; r < m; r += T) {
+    ys[r] = y0_g[b * m + r];
+    ls[r] = l_g[b * m + r];
+    us[r] = u_g[b * m + r];
+    rs[r] = rho_g[b * m + r];
+    ri[r] = 1.0f / rs[r];
+  }
+  __syncthreads();
+  for (int r = tid; r < m; r += T) zs[r] = cone_row<N, FULL>(r, xs, cm);
+  __syncthreads();
+
+  // part[t] = this thread's share of (M v)_j over rows [g R, g R + R)
+  auto kinv_part = [&](const float* v) {
+    const float* vg = v + g * R;
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < R; ++k) acc += kr[k] * vg[k];
+    part[tid] = acc;
+  };
+  auto comb = [&]() {
+    return ((part[j] + part[n + j]) + part[2 * n + j]) + part[3 * n + j];
+  };
+  auto w_of = [&](int r) { return rs[r] * zs[r] - ys[r]; };
+  auto y_of = [&](int r) { return ys[r]; };
+
+  for (int it = 0; it < p.n_iters; ++it) {
+    if (tid < n)                               // b = sigma' x - q + A'w
+      bs[j] = (ss[j] * xs[j] - qs[j]) + cone_col<N, FULL>(j, w_of, cm);
+    __syncthreads();
+    kinv_part(bs);                             // xt = K^-1 b
+    __syncthreads();
+    if (tid < n) xt[j] = comb();
+    __syncthreads();
+    if constexpr (KREF) {                      // two refinements
+      for (int s = 0; s < 2; ++s) {
+        {                                      // r = b - K xt
+          const float* kc = Ks + (size_t)g * R * n + j;
+          const float* vg = xt + g * R;
+          float acc = 0.f;
+#pragma unroll 8
+          for (int k = 0; k < R; ++k) acc += kc[k * n] * vg[k];
+          part[tid] = acc;
+        }
+        __syncthreads();
+        if (tid < n) rr[j] = bs[j] - comb();
+        __syncthreads();
+        kinv_part(rr);                         // xt = xt + K^-1 r
+        __syncthreads();
+        if (tid < n) xt[j] = xt[j] + comb();
+        __syncthreads();
+      }
+    }
+    for (int r = tid; r < m; r += T) {         // zt = A xt; z, y updates
+      const float zr = alpha * cone_row<N, FULL>(r, xt, cm) + beta * zs[r];
+      const float y = ys[r];
+      const float zn = clip_nan(zr + y * ri[r], ls[r], us[r]);
+      ys[r] = y + rs[r] * (zr - zn);
+      zs[r] = zn;
+    }
+    if (tid < n) xs[j] = alpha * xt[j] + beta * xs[j];
+    __syncthreads();
+  }
+
+  // residual pass: A x and its norms (rows), P x and A'y (columns)
+  float pri = 0.f, nax = 0.f, nz = 0.f;
+  for (int r = tid; r < m; r += T) {
+    const float acc = cone_row<N, FULL>(r, xs, cm);
+    pri = nan_max(pri, fabsf(acc - zs[r]));
+    nax = nan_max(nax, fabsf(acc));
+    nz = nan_max(nz, fabsf(zs[r]));
+    Y[b * m + r] = ys[r];
+    Z[b * m + r] = zs[r];
+  }
+  {
+    const float* Pc = P_g + b * n * n + (size_t)g * R * n + j;
+    const float* vg = xs + g * R;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < R; ++k) acc += Pc[(size_t)k * n] * vg[k];
+    part[tid] = acc;
+  }
+  __syncthreads();
+  float dua = 0.f, npx = 0.f, naty = 0.f;
+  if (tid < n) {
+    const float aty = cone_col<N, FULL>(j, y_of, cm);
+    const float px = comb();
+    dua = nan_max(dua, fabsf((px + qs[j]) + aty));
+    npx = nan_max(npx, fabsf(px));
+    naty = nan_max(naty, fabsf(aty));
+    X[b * n + j] = xs[j];
+  }
+  pri = block_max(pri, red);
+  dua = block_max(dua, red);
+  const float n1 = nan_max(block_max(nax, red), block_max(nz, red));
+  const float n2 = nan_max(block_max(npx, red), block_max(naty, red));
+  if (tid == 0) {
+    res[b] = pri;
+    res[p.B + b] = dua;
+    res[2 * (size_t)p.B + b] = n1;
+    res[3 * (size_t)p.B + b] = n2;
+  }
+}
+
+constexpr size_t cone_smem_floats(int n, int m, bool kref) {
+  return (kref ? (size_t)n * n : 0) + 10 * (size_t)n + 6 * (size_t)m + 32;
+}
+
+template <int N, bool FULL, bool KREF>
+int launch_cone(const Params& p, float mu, cudaStream_t stream,
+                const float* kinv, const float* K, const float* P,
+                const float* q, const float* l, const float* u,
+                const float* rho, const float* sig, const float* x0,
+                const float* y0, float* x, float* y, float* z, float* res) {
+  constexpr int m = FULL ? 8 * N / 3 : 5 * N / 3;
+  const size_t smem = sizeof(float) * cone_smem_floats(N, m, KREF);
+  cudaError_t e = cudaFuncSetAttribute(
+      qp_admm_cone_kernel<N, FULL, KREF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  qp_admm_cone_kernel<N, FULL, KREF><<<p.B, 4 * N, smem, stream>>>(
+      p, mu, kinv, K, P, q, l, u, rho, sig, x0, y0, x, y, z, res);
+  return (int)cudaGetLastError();
+}
+
+// kind 1: [I (x) C; I] (ConeStructure); kind 2: I (x) C
+// (ReducedConeStructure). Returns true where a cone kernel is compiled
+// for (kind, n, m).
+bool cone_shape(int kind, int n, int m) {
+  if (n != 96 && n != 192) return false;
+  if (kind == 1) return m == 8 * n / 3;
+  if (kind == 2) return m == 5 * n / 3;
+  return false;
+}
+
 }  // namespace
 
 extern "C" {
@@ -333,6 +598,41 @@ int qrw_qp_admm_solve(const float* kinv, const float* K, const float* P,
                               sig, x0, y0, x, y, z, res)
                : launch<false>(p, smem, s, kinv, K, P, A, At, q, l, u, rho,
                                sig, x0, y0, x, y, z, res);
+}
+
+// The cone variant's dynamic shared memory a block, or -1 where no cone
+// kernel is compiled for (kind, n, m); K_ref adds K itself.
+int qrw_qp_admm_cone_smem_bytes(int kind, int n, int m, int k_ref) {
+  if (!cone_shape(kind, n, m)) return -1;
+  return (int)(sizeof(float) * cone_smem_floats(n, m, k_ref != 0));
+}
+
+// The cone variant: A is not passed; `kind` (1: [I (x) C; I], 2:
+// I (x) C) with nb = n / 3 blocks and mu describe it. Other arguments as
+// qrw_qp_admm_solve. Returns cudaGetLastError(), or -1 where no cone
+// kernel is compiled for (kind, n, m).
+int qrw_qp_admm_cone_solve(int kind, float mu, const float* kinv,
+                           const float* K, const float* P, const float* q,
+                           const float* l, const float* u, const float* rho,
+                           const float* sig, const float* x0,
+                           const float* y0, float* x, float* y, float* z,
+                           float* res, int B, int n, int m, int n_iters,
+                           float alpha, void* stream) {
+  if (!cone_shape(kind, n, m)) return -1;
+  Params p;
+  p.B = B; p.n = n; p.m = m; p.n_iters = n_iters; p.alpha = alpha;
+  cudaStream_t s = (cudaStream_t)stream;
+#define QRW_CONE(N, FULL, KREF)                                              \
+  launch_cone<N, FULL, KREF>(p, mu, s, kinv, K, P, q, l, u, rho, sig, x0, y0, \
+                             x, y, z, res)
+  const bool full = kind == 1, kref = K != nullptr;
+  if (n == 96) {
+    if (full) return kref ? QRW_CONE(96, true, true) : QRW_CONE(96, true, false);
+    return kref ? QRW_CONE(96, false, true) : QRW_CONE(96, false, false);
+  }
+  if (full) return kref ? QRW_CONE(192, true, true) : QRW_CONE(192, true, false);
+  return kref ? QRW_CONE(192, false, true) : QRW_CONE(192, false, false);
+#undef QRW_CONE
 }
 
 }  // extern "C"

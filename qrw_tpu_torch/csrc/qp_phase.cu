@@ -14,106 +14,84 @@
 // problem, which records the first passing iteration (`it_conv`) and,
 // with stop_at_eps, ends a tile once all of its problems pass.
 //
-// What bounds it on the H100: not bandwidth. Per solve the bench's own
-// model (bench.py:310-335) counts ~15.2 Mflop against ~12.8 kB of
-// per-problem data, ~1200 flop/byte, far right of the card's ridge
-// point. Each iteration is a chain of ~6 dependent steps (cone product,
-// slab products, Gram product, metric step, projections), so the solve
-// is latency-bound: 300 iterations of a dependent chain per problem.
+// What bounds it on the H100: operations and their latency, not
+// bandwidth. A problem-iteration is ~48 kflop (the metric step 2n^2, the
+// two Gram products 24 cap^2, slab, cone and elementwise passes) against
+// ~12.8 kB of per-problem data read once a solve; each iteration is a
+// chain of dependent steps (slab products -> Gram products -> metric step
+// -> projections), 300 iterations long.
 //
-// What this first design does about it:
-// * One block per tile of `tile` problems (the unit of the stop_at_eps
-//   exit, as in the JAX kernel), one thread per problem. The block reads
-//   phases_of[tile] itself and stages that phase's Kbar^-1 (n x n), G1,
-//   G2 and the bounds l, u in shared memory once; every thread then
-//   reads the same shared word at the same time (broadcast, no bank
-//   conflicts). No per-tile copies of the phase blocks exist.
-// * The two per-problem vectors that the dense products consume (the
-//   slab products psf, 6cap, and the gradient g, 3cap) live in shared
-//   memory in lane-major order [row][thread], so the loops over them
-//   are conflict-free. At cap = 32, tile = 128 the block uses
-//   ~190 KB of the 227 KB a block can have.
-// * The iterates x, y, z and A x stay in device memory in the JAX
-//   layout (row-major over lanes): neighbouring threads touch
-//   neighbouring addresses, and the working set (~3.8 kB a problem)
-//   stays in L1/L2.
+// What this design does about it:
+// * A tile (the unit of the stop_at_eps exit) is spread over a cluster of
+//   CLUSTER = 8 thread blocks on 8 SMs, PB = tile / 8 problems a block,
+//   so B = 1024 at tile 128 runs 64 blocks, not 8. At each check the
+//   blocks AND their problems' flags, exchange the ANDs through
+//   distributed shared memory between two cluster barriers, and the whole
+//   tile stops together, as the Pallas kernel's tile does.
+// * Every block stages the tile's phase data (Kbar^-1 with a padded row
+//   stride n + 1, G1 and G2 with stride cap + 1, l, u) and its problems'
+//   q, slabs, x, z, y and A x in shared memory; the iterates never leave
+//   the SM until the final write. The phase data is read from L2 by the
+//   8 blocks of a tile once a launch; one copy a cluster read through
+//   distributed shared memory would instead cross the SM-to-SM network
+//   on every Kbar^-1 and G word of every iteration.
+// * A thread owns one stance slot s of PPT problems (cap x PB / PPT
+//   threads). Every product is computed output by output in the serial
+//   order of the previous one-thread-per-problem kernel, so each output is
+//   rounded as before; the shared operands are read once per warp for all
+//   the lanes that share a slot (a broadcast), and the thread reuses each
+//   Kbar^-1 and G word for its PPT problems from a register.
+// * Two block barriers an iteration: after the slab products (the Gram
+//   products read every slot's) and after the gradient (the metric step
+//   reads every row's). The termination test's per-problem maxima reduce
+//   over slots with warp shuffles and one shared-memory pass.
 // * Exact semantics: l is -inf on four of every five rows and
 //   fmaxf(v, -INFINITY) == v; y / rho is a true division; the
 //   termination test divides the cost scaling back out as the JAX
-//   wrapper does.
-// At B = 1024 this is 8 blocks on 132 SMs: correct and simple first.
-// Filling the card (several threads per problem, tensor-core products
-// for the Kbar^-1 g step) is later work.
+//   wrapper does; a phase id out of range traps.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float X_CLIP = 100.0f;
 constexpr float Y_CLIP = 1.0e4f;
+constexpr int CAP = 32;          // stance slots: 2N at N = 16
+constexpr int NV = 3 * CAP;      // variables
+constexpr int MR = 5 * CAP;      // cone rows
+constexpr int KS = NV + 1;       // padded row stride of Kbar^-1
+constexpr int GS = CAP + 1;      // padded row stride of G1, G2
+constexpr int CLUSTER = 8;       // blocks a tile (portable cluster size)
+constexpr int NRED = 6;          // pri, dua, |A x|, |z|, |H x|, |A'y|
 
 struct Params {
   float wtop[6];
   float wbot[6];
   float rho, alpha, mu, dt2, dt_m, w_force, ci, eps_abs, eps_rel;
-  int B, cap, tile, n_iters, check_every, stop_at_eps, n_phases;
+  int B, tile, n_iters, check_every, stop_at_eps, n_phases;
 };
+
+// Problems a thread (PPT), threads a slot (PH) and threads a block (NT)
+// for PB problems a block.
+template <int PB>
+struct Geo {
+  static constexpr int PPT = PB > 8 ? PB / 8 : 1;
+  static constexpr int PH = PB / PPT;
+  static constexpr int NT = CAP * PH;
+};
+
+__host__ __device__ constexpr size_t smem_floats(int pb, int nt) {
+  return (size_t)NV * KS + 2 * CAP * GS + 2 * MR +
+         (size_t)pb * (NV + 3 * MR + NV + 9 * CAP + 6 * CAP + NV) +
+         (size_t)(nt / 32) * NRED * pb + (size_t)NRED * pb + 2 * pb;
+}
 
 __device__ __forceinline__ float clipf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
-}
-
-// Lane-major accessors: element (row, col) of an (rows, B) array.
-#define AT(ptr, row) (ptr)[(size_t)(row) * p.B + col]
-// Torque slab i, slot s, component a: BlS_tor[(i, s, a), col].
-#define SLAB(i, s, a) blst[((size_t)(((i) * p.cap + (s)) * 3 + (a))) * p.B + col]
-
-// psf[s][k] for this thread's problem: k < 3 the constant force rows
-// (dt/m x_s), k >= 3 the torque-row inner products.
-__device__ void slab_products(const Params& p, int col, int tid,
-                              const float* X,
-                              const float* __restrict__ blst, float* psf) {
-  for (int s = 0; s < p.cap; ++s) {
-    const float x0 = AT(X, 3 * s), x1 = AT(X, 3 * s + 1),
-                x2 = AT(X, 3 * s + 2);
-    psf[(s * 6 + 0) * p.tile + tid] = p.dt_m * x0;
-    psf[(s * 6 + 1) * p.tile + tid] = p.dt_m * x1;
-    psf[(s * 6 + 2) * p.tile + tid] = p.dt_m * x2;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      psf[(s * 6 + 3 + a) * p.tile + tid] =
-          SLAB(0, s, a) * x0 + SLAB(1, s, a) * x1 + SLAB(2, s, a) * x2;
-    }
-  }
-}
-
-// (H_b x) for slot s, rows 3s..3s+2, given psf of x.
-__device__ void hx_slot(const Params& p, int col, int tid, int s,
-                        const float* X,
-                        const float* __restrict__ blst, const float* G1,
-                        const float* G2, const float* psf, float out[3]) {
-  float v1[6], v2[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) { v1[k] = 0.f; v2[k] = 0.f; }
-  for (int c = 0; c < p.cap; ++c) {
-    const float g1 = G1[s * p.cap + c], g2 = G2[s * p.cap + c];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const float ps = psf[(c * 6 + k) * p.tile + tid];
-      v1[k] += g1 * ps;
-      v2[k] += g2 * ps;
-    }
-  }
-  float vS[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) vS[k] = v1[k] * p.dt2 * p.wtop[k] + v2[k] * p.wbot[k];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float t = SLAB(i, s, 0) * vS[3] + SLAB(i, s, 1) * vS[4] +
-                    SLAB(i, s, 2) * vS[5];
-    out[i] = (p.dt_m * vS[i] + t) + p.w_force * AT(X, 3 * s + i);
-  }
 }
 
 __device__ __forceinline__ void cone5(float fx, float fy, float fz, float mu,
@@ -130,125 +108,258 @@ __device__ __forceinline__ void cone5_t(const float w[5], float mu,
   g[2] = -mu * (((w[0] + w[1]) + w[2]) + w[3]) - w[4];
 }
 
-// Residual norms (pri, dua, n1, n2) of this thread's problem.
-__device__ void residuals(const Params& p, int col, int tid,
-                          const float* X,
-                          const float* Z,
-                          const float* Y,
-                          const float* AX,
-                          const float* __restrict__ Q,
-                          const float* __restrict__ blst, const float* G1,
-                          const float* G2, float* psf, float r[4]) {
-  slab_products(p, col, tid, X, blst, psf);
-  float pri = 0.f, dua = 0.f, nax = 0.f, nz = 0.f, nhx = 0.f, naty = 0.f;
-  for (int s = 0; s < p.cap; ++s) {
-    float hx[3], yv[5], aty[3];
-    hx_slot(p, col, tid, s, X, blst, G1, G2, psf, hx);
+// Max over the block's slots of NV_ per-problem values: v[k][j] is this
+// thread's value j of its problem k. out[j * PB + p] gets the result.
+// Values are >= 0 (absolute values): fmaxf from 0 ignores NaN in any
+// order, as the sequential loop of one thread did.
+template <int PB, int NV_>
+__device__ void slot_max(float (&v)[Geo<PB>::PPT][NV_], float* red,
+                         float* out) {
+  constexpr int PPT = Geo<PB>::PPT, PH = Geo<PB>::PH, NT = Geo<PB>::NT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      const float ax = AT(AX, 5 * s + j), zz = AT(Z, 5 * s + j);
-      yv[j] = AT(Y, 5 * s + j);
-      pri = fmaxf(pri, fabsf(ax - zz));
-      nax = fmaxf(nax, fabsf(ax));
-      nz = fmaxf(nz, fabsf(zz));
-    }
-    cone5_t(yv, p.mu, aty);
+  for (int k = 0; k < PPT; ++k)
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      dua = fmaxf(dua, fabsf((hx[i] + AT(Q, 3 * s + i)) + aty[i]));
-      nhx = fmaxf(nhx, fabsf(hx[i]));
-      naty = fmaxf(naty, fabsf(aty[i]));
-    }
+    for (int j = 0; j < NV_; ++j)
+#pragma unroll
+      for (int o = PH; o < 32; o <<= 1)
+        v[k][j] = fmaxf(v[k][j], __shfl_xor_sync(0xffffffffu, v[k][j], o));
+  if (lane < PH) {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+#pragma unroll
+      for (int j = 0; j < NV_; ++j)
+        red[(warp * NV_ + j) * PB + lane + k * PH] = v[k][j];
   }
-  r[0] = pri; r[1] = dua; r[2] = fmaxf(nax, nz); r[3] = fmaxf(nhx, naty);
+  __syncthreads();
+  for (int i = threadIdx.x; i < NV_ * PB; i += NT) {
+    const int j = i / PB, pp = i - j * PB;
+    float r = 0.f;
+    for (int w = 0; w < NT / 32; ++w) r = fmaxf(r, red[(w * NV_ + j) * PB + pp]);
+    out[i] = r;
+  }
+  __syncthreads();
 }
 
-__global__ void qp_phase_kernel(Params p, const float* __restrict__ Q,
-                                const float* __restrict__ blst,
-                                const float* __restrict__ X0,
-                                const float* __restrict__ Y0,
-                                const float* __restrict__ kinv_all,
-                                const float* __restrict__ g1_all,
-                                const float* __restrict__ g2_all,
-                                const int* __restrict__ phases_of,
-                                const float* __restrict__ lo_g,
-                                const float* __restrict__ hi_g,
-                                float* __restrict__ X, float* __restrict__ Y,
-                                float* __restrict__ Z, float* __restrict__ AX,
-                                float* __restrict__ res) {
+template <int PB>
+__global__ void __launch_bounds__(Geo<PB>::NT)
+qp_phase_kernel(Params p, const float* __restrict__ Qg,
+                const float* __restrict__ blst,
+                const float* __restrict__ X0, const float* __restrict__ Y0,
+                const float* __restrict__ kinv_all,
+                const float* __restrict__ g1_all,
+                const float* __restrict__ g2_all,
+                const int* __restrict__ phases_of,
+                const float* __restrict__ lo_g,
+                const float* __restrict__ hi_g, float* __restrict__ Xo,
+                float* __restrict__ Yo, float* __restrict__ Zo,
+                float* __restrict__ res) {
+  constexpr int PPT = Geo<PB>::PPT, PH = Geo<PB>::PH, NT = Geo<PB>::NT;
   extern __shared__ float smem[];
-  const int cap = p.cap, n = 3 * cap, m = 5 * cap;
-  float* K = smem;                  // n * n
-  float* G1 = K + n * n;            // cap * cap
-  float* G2 = G1 + cap * cap;       // cap * cap
-  float* lo = G2 + cap * cap;       // m
-  float* hi = lo + m;               // m
-  float* psf = hi + m;              // 6cap * tile
-  float* gs = psf + 6 * cap * p.tile;  // n * tile
+  float* K = smem;                     // NV x KS, Kbar^-1 of the phase
+  float* G1 = K + NV * KS;             // CAP x GS
+  float* G2 = G1 + CAP * GS;           // CAP x GS
+  float* lo = G2 + CAP * GS;           // MR
+  float* hi = lo + MR;                 // MR
+  float* X = hi + MR;                  // (NV, PB): element (row, problem)
+  float* Z = X + NV * PB;              // (MR, PB)
+  float* Y = Z + MR * PB;              // (MR, PB)
+  float* AX = Y + MR * PB;             // (MR, PB)
+  float* Q = AX + MR * PB;             // (NV, PB)
+  float* SL = Q + NV * PB;             // (9 CAP, PB): slab (i, s, a)
+  float* PSF = SL + 9 * CAP * PB;      // (6 CAP, PB): slab products
+  float* GV = PSF + 6 * CAP * PB;      // (NV, PB): gradient
+  float* RED = GV + NV * PB;           // (NT / 32, NRED, PB)
+  float* RMAX = RED + (NT / 32) * NRED * PB;  // (NRED, PB) reduced maxima
+  float* ITC = RMAX + NRED * PB;         // (PB) it_conv
+  float* NQ = ITC + PB;                // (PB) max |q| of each problem
+  __shared__ int vote;
 
   const int tid = threadIdx.x;
-  const int col = blockIdx.x * p.tile + tid;
-  const int ph = phases_of[blockIdx.x];
-  if (ph < 0 || ph >= p.n_phases) __trap();  // a phase id out of range
-  const float* kinv = kinv_all + (size_t)ph * n * n;
-  for (int i = tid; i < n * n; i += blockDim.x) K[i] = kinv[i];
-  for (int i = tid; i < cap * cap; i += blockDim.x) {
-    G1[i] = g1_all[(size_t)ph * cap * cap + i];
-    G2[i] = g2_all[(size_t)ph * cap * cap + i];
-  }
-  for (int i = tid; i < m; i += blockDim.x) { lo[i] = lo_g[i]; hi[i] = hi_g[i]; }
+  const int tile_id = blockIdx.x / CLUSTER;
+  const int col0 = tile_id * p.tile + (blockIdx.x % CLUSTER) * PB;
+  const int ph_id = phases_of[tile_id];
+  if (ph_id < 0 || ph_id >= p.n_phases) __trap();  // a phase id out of range
 
-  // x = x0, y = y0, A x, z = A x
-  float nrm_q = 0.f;
-  for (int s = 0; s < cap; ++s) {
-    float c5[5];
-    const float x0 = X0[(size_t)(3 * s) * p.B + col];
-    const float x1 = X0[(size_t)(3 * s + 1) * p.B + col];
-    const float x2 = X0[(size_t)(3 * s + 2) * p.B + col];
-    AT(X, 3 * s) = x0; AT(X, 3 * s + 1) = x1; AT(X, 3 * s + 2) = x2;
-    cone5(x0, x1, x2, p.mu, c5);
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      AT(AX, 5 * s + j) = c5[j];
-      AT(Z, 5 * s + j) = c5[j];
-      AT(Y, 5 * s + j) = Y0[(size_t)(5 * s + j) * p.B + col];
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) nrm_q = fmaxf(nrm_q, fabsf(AT(Q, 3 * s + i)));
+  const float* kinv = kinv_all + (size_t)ph_id * NV * NV;
+  for (int i = tid; i < NV * NV; i += NT) K[(i / NV) * KS + i % NV] = kinv[i];
+  for (int i = tid; i < CAP * CAP; i += NT) {
+    const int r = i / CAP, c = i % CAP;
+    G1[r * GS + c] = g1_all[(size_t)ph_id * CAP * CAP + i];
+    G2[r * GS + c] = g2_all[(size_t)ph_id * CAP * CAP + i];
   }
-  nrm_q *= p.ci;
+  for (int i = tid; i < MR; i += NT) { lo[i] = lo_g[i]; hi[i] = hi_g[i]; }
+  for (int i = tid; i < NV * PB; i += NT) {
+    const size_t g = (size_t)(i / PB) * p.B + col0 + i % PB;
+    X[i] = X0[g];
+    Q[i] = Qg[g];
+  }
+  for (int i = tid; i < MR * PB; i += NT)
+    Y[i] = Y0[(size_t)(i / PB) * p.B + col0 + i % PB];
+  for (int i = tid; i < 9 * CAP * PB; i += NT)
+    SL[i] = blst[(size_t)(i / PB) * p.B + col0 + i % PB];
+  for (int i = tid; i < PB; i += NT) ITC[i] = (float)p.n_iters;
   __syncthreads();
 
-  float it_conv = (float)p.n_iters;
+  // this thread's stance slot and problems ph + k PH, k < PPT
+  const int s = tid / PH, ph = tid % PH;
+#define AT(arr, row, k) (arr)[(row) * PB + ph + (k) * PH]
+#define SLAB(i, a, k) AT(SL, ((i) * CAP + s) * 3 + (a), k)
+
+  // A x0 and z = A x0; |q| of the slot
+  float nq[PPT][1];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    float c5[5];
+    cone5(AT(X, 3 * s, k), AT(X, 3 * s + 1, k), AT(X, 3 * s + 2, k), p.mu, c5);
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      AT(AX, 5 * s + j, k) = c5[j];
+      AT(Z, 5 * s + j, k) = c5[j];
+    }
+    nq[k][0] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) nq[k][0] = fmaxf(nq[k][0], fabsf(AT(Q, 3 * s + i, k)));
+  }
+  slot_max<PB, 1>(nq, RED, NQ);
+  for (int i = tid; i < PB; i += NT) NQ[i] *= p.ci;
+
+  // psf of the slot: k < 3 the constant force rows (dt/m x_s), k >= 3 the
+  // torque-row inner products
+  auto slab_products = [&]() {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const float x0 = AT(X, 3 * s, k), x1 = AT(X, 3 * s + 1, k),
+                  x2 = AT(X, 3 * s + 2, k);
+      AT(PSF, s * 6 + 0, k) = p.dt_m * x0;
+      AT(PSF, s * 6 + 1, k) = p.dt_m * x1;
+      AT(PSF, s * 6 + 2, k) = p.dt_m * x2;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        AT(PSF, s * 6 + 3 + a, k) =
+            SLAB(0, a, k) * x0 + SLAB(1, a, k) * x1 + SLAB(2, a, k) * x2;
+    }
+  };
+  // (H_b x) for the slot's rows 3s..3s+2, from every slot's psf
+  auto hx_slot = [&](float out[PPT][3]) {
+    float v1[PPT][6], v2[PPT][6];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+#pragma unroll
+      for (int c = 0; c < 6; ++c) { v1[k][c] = 0.f; v2[k][c] = 0.f; }
+#pragma unroll 4
+    for (int c = 0; c < CAP; ++c) {
+      const float g1 = G1[s * GS + c], g2 = G2[s * GS + c];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k)
+#pragma unroll
+        for (int a = 0; a < 6; ++a) {
+          const float ps = AT(PSF, c * 6 + a, k);
+          v1[k][a] += g1 * ps;
+          v2[k][a] += g2 * ps;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      float vS[6];
+#pragma unroll
+      for (int a = 0; a < 6; ++a)
+        vS[a] = v1[k][a] * p.dt2 * p.wtop[a] + v2[k][a] * p.wbot[a];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float t = SLAB(i, 0, k) * vS[3] + SLAB(i, 1, k) * vS[4] +
+                        SLAB(i, 2, k) * vS[5];
+        out[k][i] = (p.dt_m * vS[i] + t) + p.w_force * AT(X, 3 * s + i, k);
+      }
+    }
+  };
+  // residual maxima of the slot, reduced into RMAX
+  auto residuals = [&]() {
+    slab_products();
+    float v[PPT][NRED];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+#pragma unroll
+      for (int j = 0; j < NRED; ++j) v[k][j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+        const float ax = AT(AX, 5 * s + j, k), zz = AT(Z, 5 * s + j, k);
+        v[k][0] = fmaxf(v[k][0], fabsf(ax - zz));
+        v[k][2] = fmaxf(v[k][2], fabsf(ax));
+        v[k][3] = fmaxf(v[k][3], fabsf(zz));
+      }
+    }
+    __syncthreads();  // every slot's psf
+    float hx[PPT][3];
+    hx_slot(hx);
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      float yv[5], aty[3];
+#pragma unroll
+      for (int j = 0; j < 5; ++j) yv[j] = AT(Y, 5 * s + j, k);
+      cone5_t(yv, p.mu, aty);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        v[k][1] = fmaxf(v[k][1], fabsf((hx[k][i] + AT(Q, 3 * s + i, k)) + aty[i]));
+        v[k][4] = fmaxf(v[k][4], fabsf(hx[k][i]));
+        v[k][5] = fmaxf(v[k][5], fabsf(aty[i]));
+      }
+    }
+    slot_max<PB, NRED>(v, RED, RMAX);
+  };
+
+  cg::cluster_group cluster = cg::this_cluster();
   const int n_chunks = (p.n_iters + p.check_every - 1) / p.check_every;
   for (int c = 0; c < n_chunks; ++c) {
     const int hi_it = min((c + 1) * p.check_every, p.n_iters);
     for (int it = c * p.check_every; it < hi_it; ++it) {
-      // g = (H_b x + q) + A'(rho (A x - z) + y), into shared memory
-      slab_products(p, col, tid, X, blst, psf);
-      for (int s = 0; s < cap; ++s) {
-        float hx[3], w[5], atw[3];
-        hx_slot(p, col, tid, s, X, blst, G1, G2, psf, hx);
+      // A'(rho (A x - z) + y) of the slot, and its psf
+      slab_products();
+      float atw[PPT][3];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        float w[5];
 #pragma unroll
         for (int j = 0; j < 5; ++j)
-          w[j] = p.rho * (AT(AX, 5 * s + j) - AT(Z, 5 * s + j)) +
-                 AT(Y, 5 * s + j);
-        cone5_t(w, p.mu, atw);
+          w[j] = p.rho * (AT(AX, 5 * s + j, k) - AT(Z, 5 * s + j, k)) +
+                 AT(Y, 5 * s + j, k);
+        cone5_t(w, p.mu, atw[k]);
+      }
+      __syncthreads();  // every slot's psf; the metric step done with GV
+      // g = (H_b x + q) + A'w
+      float hx[PPT][3];
+      hx_slot(hx);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k)
 #pragma unroll
         for (int i = 0; i < 3; ++i)
-          gs[(3 * s + i) * p.tile + tid] = (hx[i] + AT(Q, 3 * s + i)) + atw[i];
+          AT(GV, 3 * s + i, k) = (hx[k][i] + AT(Q, 3 * s + i, k)) + atw[k][i];
+      __syncthreads();  // every row of g
+      // x+ = x - Kbar^-1 g for the slot's rows, then the cone projection
+      float acc[PPT][3];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k)
+#pragma unroll
+        for (int i = 0; i < 3; ++i) acc[k][i] = 0.f;
+      const float* Krow = K + 3 * s * KS;
+#pragma unroll 4
+      for (int j = 0; j < NV; ++j) {
+        const float k0 = Krow[j], k1 = Krow[KS + j], k2 = Krow[2 * KS + j];
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const float gv = AT(GV, j, k);
+          acc[k][0] += k0 * gv;
+          acc[k][1] += k1 * gv;
+          acc[k][2] += k2 * gv;
+        }
       }
-      // x+ = x - Kbar^-1 g, then the cone projection, slot by slot
-      for (int s = 0; s < cap; ++s) {
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
         float xt[3], xo[3], xn[3];
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
-          const float* Krow = K + (3 * s + i) * n;
-          float acc = 0.f;
-#pragma unroll 8
-          for (int j = 0; j < n; ++j) acc += Krow[j] * gs[j * p.tile + tid];
-          xo[i] = AT(X, 3 * s + i);
-          xt[i] = xo[i] - acc;
+          xo[i] = AT(X, 3 * s + i, k);
+          xt[i] = xo[i] - acc[k][i];
         }
         float axn[5], zr[5];
         if (p.alpha == 1.0f) {
@@ -266,56 +377,151 @@ __global__ void qp_phase_kernel(Params p, const float* __restrict__ Q,
           cone5(xt[0], xt[1], xt[2], p.mu, zt);
 #pragma unroll
           for (int j = 0; j < 5; ++j)
-            zr[j] = p.alpha * zt[j] + (1.0f - p.alpha) * AT(Z, 5 * s + j);
+            zr[j] = p.alpha * zt[j] + (1.0f - p.alpha) * AT(Z, 5 * s + j, k);
           cone5(xn[0], xn[1], xn[2], p.mu, axn);
         }
 #pragma unroll
-        for (int i = 0; i < 3; ++i) AT(X, 3 * s + i) = xn[i];
+        for (int i = 0; i < 3; ++i) AT(X, 3 * s + i, k) = xn[i];
 #pragma unroll
         for (int j = 0; j < 5; ++j) {
           const int r = 5 * s + j;
-          const float yo = AT(Y, r);
+          const float yo = AT(Y, r, k);
           const float zn = clipf(zr[j] + yo / p.rho, lo[r], hi[r]);
-          AT(Z, r) = zn;
-          AT(Y, r) = clipf(yo + p.rho * (zr[j] - zn), -Y_CLIP, Y_CLIP);
-          AT(AX, r) = axn[j];
+          AT(Z, r, k) = zn;
+          AT(Y, r, k) = clipf(yo + p.rho * (zr[j] - zn), -Y_CLIP, Y_CLIP);
+          AT(AX, r, k) = axn[j];
         }
       }
     }
-    float r[4];
-    residuals(p, col, tid, X, Z, Y, AX, Q, blst, G1, G2, psf, r);
-    const float eps_p = p.eps_abs + p.eps_rel * r[2];
-    const float eps_d = p.eps_abs + p.eps_rel * fmaxf(r[3] * p.ci, nrm_q);
-    const bool cv = (r[0] <= eps_p) && (r[1] * p.ci <= eps_d);
-    it_conv = fminf(it_conv, cv ? (float)hi_it : (float)p.n_iters);
+    residuals();
+    // the termination test per problem (NQ: max |q| ci); RMAX's first row
+    // then holds the flags for the vote
+    for (int i = tid; i < PB; i += NT) {
+      const float eps_p = p.eps_abs + p.eps_rel * fmaxf(RMAX[2 * PB + i], RMAX[3 * PB + i]);
+      const float eps_d = p.eps_abs + p.eps_rel *
+          fmaxf(fmaxf(RMAX[4 * PB + i], RMAX[5 * PB + i]) * p.ci, NQ[i]);
+      const bool cv = (RMAX[i] <= eps_p) && (RMAX[PB + i] * p.ci <= eps_d);
+      ITC[i] = fminf(ITC[i], cv ? (float)hi_it : (float)p.n_iters);
+      RMAX[i] = cv ? 1.f : 0.f;  // the flag, read by the vote below
+    }
     if (p.stop_at_eps) {
-      if (__syncthreads_and(cv)) break;
+      __syncthreads();
+      int all = 1;
+      for (int i = 0; i < PB; ++i) all &= RMAX[i] != 0.f;
+      if (tid == 0) vote = all;
+      cluster.sync();  // every block's vote written
+      int tile_all = 1;
+      for (int r = 0; r < CLUSTER; ++r)
+        tile_all &= *cluster.map_shared_rank(&vote, r);
+      cluster.sync();  // every vote read before the next is written
+      if (tile_all) break;
     }
   }
-  float r[4];
-  residuals(p, col, tid, X, Z, Y, AX, Q, blst, G1, G2, psf, r);
-  AT(res, 0) = r[0];
-  AT(res, 1) = r[1];
-  AT(res, 2) = r[2];
-  AT(res, 3) = r[3];
-  AT(res, 4) = it_conv;
-}
-
+  residuals();
+  for (int i = tid; i < NV * PB; i += NT)
+    Xo[(size_t)(i / PB) * p.B + col0 + i % PB] = X[i];
+  for (int i = tid; i < MR * PB; i += NT) {
+    const size_t g = (size_t)(i / PB) * p.B + col0 + i % PB;
+    Yo[g] = Y[i];
+    Zo[g] = Z[i];
+  }
+  for (int i = tid; i < PB; i += NT) {
+    float* r = res + col0 + i;
+    r[0] = RMAX[i];
+    r[(size_t)p.B] = RMAX[PB + i];
+    r[2 * (size_t)p.B] = fmaxf(RMAX[2 * PB + i], RMAX[3 * PB + i]);
+    r[3 * (size_t)p.B] = fmaxf(RMAX[4 * PB + i], RMAX[5 * PB + i]);
+    r[4 * (size_t)p.B] = ITC[i];
+  }
 #undef AT
 #undef SLAB
+}
 
-size_t smem_bytes(int cap, int tile) {
-  const size_t n = 3 * (size_t)cap, m = 5 * (size_t)cap;
-  return sizeof(float) *
-         (n * n + 2 * (size_t)cap * cap + 2 * m + 9 * (size_t)cap * tile);
+// Problems a block for a tile, or 0 where no kernel takes the tile.
+int block_problems(int cap, int tile) {
+  if (cap != CAP || tile % CLUSTER) return 0;
+  const int pb = tile / CLUSTER;
+  return (pb == 4 || pb == 8 || pb == 16 || pb == 32) ? pb : 0;
+}
+
+int block_threads(int pb) {
+  switch (pb) {
+    case 4: return Geo<4>::NT;
+    case 8: return Geo<8>::NT;
+    case 16: return Geo<16>::NT;
+    case 32: return Geo<32>::NT;
+  }
+  return 0;
+}
+
+template <int PB>
+cudaLaunchConfig_t launch_config(int B, int tile, size_t smem,
+                                 cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((B / tile) * CLUSTER, 1, 1);
+  cfg.blockDim = dim3(Geo<PB>::NT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CLUSTER;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Sets the kernel's shared-memory attribute; with `clusters` non-null,
+// stores how many clusters of the launch can be resident at once.
+template <int PB>
+int prepare(int B, int tile, cudaStream_t stream, int* clusters) {
+  const size_t smem = sizeof(float) * smem_floats(PB, Geo<PB>::NT);
+  cudaError_t e = cudaFuncSetAttribute(
+      qp_phase_kernel<PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters) {
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = launch_config<PB>(B, tile, smem, stream, &attr);
+    e = cudaOccupancyMaxActiveClusters(clusters, qp_phase_kernel<PB>, &cfg);
+  }
+  return (int)e;
+}
+
+template <int PB>
+int launch(const Params& p, cudaStream_t stream, const float* q,
+           const float* blst, const float* x0, const float* y0,
+           const float* kinv, const float* g1, const float* g2,
+           const int* phases_of, const float* lo, const float* hi, float* x,
+           float* y, float* z, float* res) {
+  const int e = prepare<PB>(p.B, p.tile, stream, nullptr);
+  if (e != 0) return e;
+  const size_t smem = sizeof(float) * smem_floats(PB, Geo<PB>::NT);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config<PB>(p.B, p.tile, smem, stream, &attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, qp_phase_kernel<PB>, p, q, blst,
+                                       x0, y0, kinv, g1, g2, phases_of, lo,
+                                       hi, x, y, z, res);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int qrw_qp_phase_smem_bytes(int cap, int tile) {
-  return (int)smem_bytes(cap, tile);
+// Launch geometry at (cap, tile): out[0] problems a block, out[1] the
+// cluster size, out[2] threads a block, out[3] dynamic shared memory a
+// block in bytes. Returns 0, or -1 where no kernel takes the tile.
+int qrw_qp_phase_geometry(int cap, int tile, int* out) {
+  const int pb = block_problems(cap, tile);
+  if (pb == 0) return -1;
+  out[0] = pb;
+  out[1] = CLUSTER;
+  out[2] = block_threads(pb);
+  out[3] = (int)(sizeof(float) * smem_floats(pb, block_threads(pb)));
+  return 0;
 }
 
 int qrw_qp_phase_max_smem_bytes() {
@@ -325,32 +531,52 @@ int qrw_qp_phase_max_smem_bytes() {
   return v;
 }
 
+// Clusters of a B-problem launch at (cap, tile) that the card can hold
+// at once (cudaOccupancyMaxActiveClusters) into *clusters. Returns a
+// CUDA error code, or -1 where no kernel takes the tile.
+int qrw_qp_phase_max_active_clusters(int cap, int tile, int B,
+                                     int* clusters) {
+  switch (block_problems(cap, tile)) {
+    case 4: return prepare<4>(B, tile, 0, clusters);
+    case 8: return prepare<8>(B, tile, 0, clusters);
+    case 16: return prepare<16>(B, tile, 0, clusters);
+    case 32: return prepare<32>(B, tile, 0, clusters);
+  }
+  return -1;
+}
+
 // Pointers are device pointers except w12 (host, 12 floats: wtop then
-// wbot). Launches on `stream` and returns cudaGetLastError().
+// wbot). Launches on `stream` and returns cudaGetLastError(), or -1
+// where no kernel takes (cap, tile).
 int qrw_qp_phase_solve(const float* q, const float* blst, const float* x0,
                        const float* y0, const float* kinv, const float* g1,
                        const float* g2, const int* phases_of, const float* lo,
                        const float* hi, float* x, float* y, float* z,
-                       float* ax, float* res, const float* w12, int B,
-                       int cap, int tile, int n_phases, int n_iters,
-                       int check_every, int stop_at_eps, float rho,
-                       float alpha, float mu, float dt2, float dt_m,
-                       float w_force, float ci, float eps_abs, float eps_rel,
-                       void* stream) {
+                       float* res, const float* w12, int B, int cap,
+                       int tile, int n_phases, int n_iters, int check_every,
+                       int stop_at_eps, float rho, float alpha, float mu,
+                       float dt2, float dt_m, float w_force, float ci,
+                       float eps_abs, float eps_rel, void* stream) {
   Params p;
   for (int k = 0; k < 6; ++k) { p.wtop[k] = w12[k]; p.wbot[k] = w12[6 + k]; }
   p.rho = rho; p.alpha = alpha; p.mu = mu; p.dt2 = dt2; p.dt_m = dt_m;
   p.w_force = w_force; p.ci = ci; p.eps_abs = eps_abs; p.eps_rel = eps_rel;
-  p.B = B; p.cap = cap; p.tile = tile; p.n_iters = n_iters;
+  p.B = B; p.tile = tile; p.n_iters = n_iters;
   p.check_every = check_every; p.stop_at_eps = stop_at_eps;
   p.n_phases = n_phases;
-  const size_t smem = smem_bytes(cap, tile);
-  cudaError_t e = cudaFuncSetAttribute(
-      qp_phase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  qp_phase_kernel<<<B / tile, tile, smem, (cudaStream_t)stream>>>(
-      p, q, blst, x0, y0, kinv, g1, g2, phases_of, lo, hi, x, y, z, ax, res);
-  return (int)cudaGetLastError();
+  if (B % tile) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+#define QRW_LAUNCH(PB)                                                        \
+  launch<PB>(p, s, q, blst, x0, y0, kinv, g1, g2, phases_of, lo, hi, x, y, z, \
+             res)
+  switch (block_problems(cap, tile)) {
+    case 4: return QRW_LAUNCH(4);
+    case 8: return QRW_LAUNCH(8);
+    case 16: return QRW_LAUNCH(16);
+    case 32: return QRW_LAUNCH(32);
+  }
+#undef QRW_LAUNCH
+  return -1;
 }
 
 }  // extern "C"

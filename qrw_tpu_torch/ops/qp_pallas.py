@@ -38,10 +38,12 @@ import torch
 
 from qrw_tpu_torch.ops import qp
 
-# Launches of the CUDA kernels on CUDA tensors: K2 (one per ADMM round)
-# and K3 (one per Newton-Schulz refinement in `_factor`). chip_smoke.py
-# resets them before a run of the main path and reads them after.
+# Launches of the CUDA kernels on CUDA tensors: K2 (one per ADMM round,
+# either variant), of them the dense variant's alone (cone=None), and K3
+# (one per Newton-Schulz refinement in `_factor`). chip_smoke.py resets
+# them before a run of the main path and reads them after.
 KERNEL_LAUNCHES = 0
+DENSE_KERNEL_LAUNCHES = 0
 NS_KERNEL_LAUNCHES = 0
 
 
@@ -207,6 +209,60 @@ def _run_kernel_plain(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw,
 
 
 # ----------------------------------------------------------------------
+# The cone structure as the kernel takes it
+# ----------------------------------------------------------------------
+
+CONE_FULL = 1       # ConeStructure: A = [I_nb (x) C; I_n], nb = 4N
+CONE_REDUCED = 2    # ReducedConeStructure: A = I_nb (x) C
+
+
+class ConeDesc(NamedTuple):
+    """What K2's cone variant gets instead of A: the kind, the number of
+    5 x 3 friction blocks (n / 3) and mu."""
+    kind: int
+    n_blocks: int
+    mu: float
+
+    @property
+    def n(self) -> int:
+        return 3 * self.n_blocks
+
+    @property
+    def m(self) -> int:
+        return 5 * self.n_blocks + (self.n if self.kind == CONE_FULL else 0)
+
+
+def cone_description(cone) -> ConeDesc:
+    """The kernel's description of a ConeStructure or
+    ReducedConeStructure."""
+    if isinstance(cone, qp.ReducedConeStructure):
+        return ConeDesc(CONE_REDUCED, int(cone.n_blocks), float(cone.mu))
+    if isinstance(cone, qp.ConeStructure):
+        return ConeDesc(CONE_FULL, 4 * int(cone.n_steps), float(cone.mu))
+    raise TypeError(f"not a cone structure: {type(cone).__name__}")
+
+
+def cone_matrix_of(desc: ConeDesc) -> np.ndarray:
+    """The dense A (m, n), float64, that the description stands for."""
+    F = qp.ReducedConeStructure(desc.n_blocks, desc.mu).matrix()
+    if desc.kind == CONE_FULL:
+        return np.vstack([F, np.eye(desc.n)])
+    return F
+
+
+def check_cone(A, cone) -> ConeDesc:
+    """Raise ValueError unless A (m, n) is exactly the cone matrix of
+    `cone` in A's dtype; return the kernel's description of it."""
+    desc = cone_description(cone)
+    want = torch.as_tensor(cone_matrix_of(desc), dtype=A.dtype,
+                           device=A.device)
+    if tuple(A.shape) != tuple(want.shape) or not torch.equal(A, want):
+        raise ValueError(f"A {tuple(A.shape)} is not the cone matrix of "
+                         f"{cone}")
+    return desc
+
+
+# ----------------------------------------------------------------------
 # The CUDA kernel (qrw_tpu_torch/csrc/qp_admm.cu)
 # ----------------------------------------------------------------------
 
@@ -228,6 +284,11 @@ def _cfunc():
         lib.qrw_qp_admm_smem_bytes.restype = _I
         lib.qrw_qp_admm_max_smem_bytes.argtypes = []
         lib.qrw_qp_admm_max_smem_bytes.restype = _I
+        lib.qrw_qp_admm_cone_smem_bytes.argtypes = [_I] * 4
+        lib.qrw_qp_admm_cone_smem_bytes.restype = _I
+        lib.qrw_qp_admm_cone_solve.argtypes = ([_I, _F] + [_P] * 14
+                                               + [_I] * 4 + [_F] + [_P])
+        lib.qrw_qp_admm_cone_solve.restype = _I
         lib.qrw_ns_refine.argtypes = [_P] * 5 + [_I] * 3 + [_P]
         lib.qrw_ns_refine.restype = _I
     return lib
@@ -247,13 +308,20 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
+# n of the cone variant's compiled kernels (csrc/qp_admm.cu)
+CONE_KERNEL_N = (96, 192)
+
+
 def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
-            n_iters: int, K=None):
-    """Launch K2 on the current stream: one block per problem. Where A
-    does not fit a block's shared memory beside K^-1 (n = 192, m = 512),
-    the kernel reads A and a contiguous A' from device memory. Returns
-    (x, y, z, pri, dua, n1, n2)."""
-    global KERNEL_LAUNCHES
+            n_iters: int, K=None, cone=None):
+    """Launch K2 on the current stream, one block per problem. With a
+    `cone` description (ConeDesc) the cone variant runs: A is not read,
+    K^-1 stays in registers (4n threads a block) and K (K_ref) in shared
+    memory. Without it the dense variant runs; where A does not fit a
+    block's shared memory beside K^-1 (n = 192, m = 512) it reads A and a
+    contiguous A' from device memory. Returns (x, y, z, pri, dua, n1,
+    n2)."""
+    global KERNEL_LAUNCHES, DENSE_KERNEL_LAUNCHES
     B, n = q.shape
     m = A.shape[0]
     dev = q.device
@@ -268,29 +336,48 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
         _check(name, t, shape, dev)
     if B < 1 or B > 2 ** 31 - 1:
         raise ValueError(f"batch {B} out of range")
+    if K is not None and K.data_ptr() % 16:
+        raise ValueError("K: not 16-byte aligned (the kernel reads float4)")
+    if cone is not None and ((cone.n, cone.m) != (n, m)
+                             or n not in CONE_KERNEL_N):
+        raise ValueError(f"qp_admm cone kernel: no kernel for n={n}, m={m} "
+                         f"and cone {cone}; compiled for n in "
+                         f"{CONE_KERNEL_N}")
     lib = _cfunc()
-    need = lib.qrw_qp_admm_smem_bytes(n, m)
     have = lib.qrw_qp_admm_max_smem_bytes()
+    if cone is not None:
+        need = lib.qrw_qp_admm_cone_smem_bytes(cone.kind, n, m,
+                                               int(K is not None))
+    else:
+        need = lib.qrw_qp_admm_smem_bytes(n, m)
     if need > have:
         raise ValueError(f"qp_admm kernel needs {need} B of shared memory "
                          f"per block at n={n}, m={m}; the card offers "
                          f"{have}")
-    At = A if lib.qrw_qp_admm_stages_A(n, m) else A.t().contiguous()
     f32 = torch.float32
     x = torch.empty((B, n), dtype=f32, device=dev)
     y = torch.empty((B, m), dtype=f32, device=dev)
     z = torch.empty((B, m), dtype=f32, device=dev)
     res = torch.empty((4, B), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.qrw_qp_admm_solve(
-        Kinv.data_ptr(), None if K is None else K.data_ptr(), P.data_ptr(),
-        A.data_ptr(), At.data_ptr(), q.data_ptr(), l.data_ptr(),
-        u.data_ptr(), rho_vec.data_ptr(), sig_vec.data_ptr(), xw.data_ptr(),
-        yw.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
-        res.data_ptr(), B, n, m, int(n_iters), float(alpha), stream)
+    vecs = (P.data_ptr(), q.data_ptr(), l.data_ptr(), u.data_ptr(),
+            rho_vec.data_ptr(), sig_vec.data_ptr(), xw.data_ptr(),
+            yw.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+            res.data_ptr())
+    Kp = None if K is None else K.data_ptr()
+    if cone is not None:
+        err = lib.qrw_qp_admm_cone_solve(
+            cone.kind, float(cone.mu), Kinv.data_ptr(), Kp, *vecs, B, n, m,
+            int(n_iters), float(alpha), stream)
+    else:
+        At = A if lib.qrw_qp_admm_stages_A(n, m) else A.t().contiguous()
+        err = lib.qrw_qp_admm_solve(
+            Kinv.data_ptr(), Kp, P.data_ptr(), A.data_ptr(), At.data_ptr(),
+            *vecs[1:], B, n, m, int(n_iters), float(alpha), stream)
     if err != 0:
         raise RuntimeError(f"qp_admm kernel launch failed: CUDA error {err}")
     KERNEL_LAUNCHES += 1
+    DENSE_KERNEL_LAUNCHES += cone is None
     return x, y, z, res[0], res[1], res[2], res[3]
 
 
@@ -324,11 +411,15 @@ def _ns_launch(K, X0, ns_iters: int):
 
 
 def _run_kernel(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw,
-                alpha: float, n_iters: int, tile: int = 16, K=None):
+                alpha: float, n_iters: int, tile: int = 16, K=None,
+                cone=None):
     """One round of `n_iters` ADMM steps: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors. With K, the refinement
-    variant. `tile` is the JAX package's problems per grid step; the
-    kernel takes one block per problem and ignores it."""
+    variant. With `cone` (a ConeStructure or ReducedConeStructure, A its
+    matrix, as `solve` checks) the kernel's cone variant applies A by its
+    structure; without it the dense variant reads A. `tile` is the JAX
+    package's problems per grid step; both variants take one block per
+    problem and ignore it."""
     del tile
     if q.device.type == "cpu":
         return _run_kernel_plain(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw,
@@ -336,8 +427,10 @@ def _run_kernel(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw,
     if q.device.type != "cuda":
         raise ValueError(f"qp_pallas: unsupported device {q.device}")
     c = lambda t: None if t is None else t.contiguous()
+    desc = None if cone is None else cone_description(cone)
     return _launch(c(Kinv), c(P), c(A), c(q), c(l), c(u), c(rho_vec),
-                   c(sig_vec), c(xw), c(yw), alpha, n_iters, K=c(K))
+                   c(sig_vec), c(xw), c(yw), alpha, n_iters, K=c(K),
+                   cone=desc)
 
 
 def precondition(P, q, A, l, u, s: qp.QPSettings, precond=None):
@@ -375,9 +468,12 @@ def solve(P, q, A, l, u, settings: qp.QPSettings = qp.QPSettings(),
     equilibrating; `rho_init` (B, 1) carries an adapted rho; x0/y0 warm
     starts (non-finite entries reset to zero). With `early_exit`, rounds
     after the first are skipped once every problem has converged (one
-    host read a round). The device of q decides where it runs: the
-    kernels on CUDA, their plain versions on the CPU, ValueError
-    elsewhere.
+    host read a round). `cone` (a ConeStructure or ReducedConeStructure)
+    says that A is its cone matrix, which is checked once (ValueError
+    if not): K is then assembled block by block and K2 applies A by its
+    structure; with cone=None K2 reads A as a general matrix. The device
+    of q decides where it runs: the kernels on CUDA, their plain
+    versions on the CPU, ValueError elsewhere.
 
     `refactor` says how round 0 of a warm call (kinv_init given, the
     previous K^-1, factored at kinv_rho) obtains K^-1:
@@ -402,6 +498,8 @@ def solve(P, q, A, l, u, settings: qp.QPSettings = qp.QPSettings(),
         raise ValueError("qp_pallas.solve needs a shared constraint "
                          "matrix A (m, n)")
     B, n = q.shape
+    if cone is not None:
+        check_cone(A, cone)     # the kernel applies this structure, not A
     s = settings
     if schedule is None:
         # a short first round before the first rho adaptation, then
@@ -439,7 +537,7 @@ def solve(P, q, A, l, u, settings: qp.QPSettings = qp.QPSettings(),
             Kinv = _chol_inv(K)
         x, y, z, pri, dua, n1, n2 = _run_kernel(
             Kinv, P, A, q, l, u, rho_vec, sig_vec, x, y, s.alpha, n_iters,
-            tile=tile, K=K if stale else None)
+            tile=tile, K=K if stale else None, cone=cone)
         eps_p = s.eps_abs + s.eps_rel * n1
         eps_d = s.eps_abs + s.eps_rel * torch.maximum(n2, nrm_q)
         iters = iters + torch.where(conv, 0, int(n_iters)).to(torch.int32)

@@ -297,13 +297,73 @@ def _cfunc():
     lib = kernels.library()
     fn = lib.qrw_qp_phase_solve
     if fn.argtypes is None:
-        fn.argtypes = ([_P] * 15 + [_P] + [_I] * 7 + [_F] * 9 + [_P])
+        fn.argtypes = ([_P] * 14 + [_P] + [_I] * 7 + [_F] * 9 + [_P])
         fn.restype = _I
-        lib.qrw_qp_phase_smem_bytes.argtypes = [_I, _I]
-        lib.qrw_qp_phase_smem_bytes.restype = _I
+        lib.qrw_qp_phase_geometry.argtypes = [_I, _I, _P]
+        lib.qrw_qp_phase_geometry.restype = _I
         lib.qrw_qp_phase_max_smem_bytes.argtypes = []
         lib.qrw_qp_phase_max_smem_bytes.restype = _I
+        lib.qrw_qp_phase_max_active_clusters.argtypes = [_I, _I, _I, _P]
+        lib.qrw_qp_phase_max_active_clusters.restype = _I
     return lib
+
+
+# The kernel spreads a tile over a cluster of CLUSTER thread blocks, each
+# holding tile // CLUSTER problems; it is compiled for these block sizes
+# and for the fleet's cap of 32 stance slots (csrc/qp_phase.cu).
+CLUSTER = 8
+KERNEL_CAP = 32
+BLOCK_PROBLEMS = (4, 8, 16, 32)
+
+
+class LaunchGeometry(NamedTuple):
+    problems_per_block: int
+    cluster: int             # blocks a tile
+    threads: int             # threads a block
+    grid: int                # blocks in all
+    smem_bytes: int          # dynamic shared memory a block
+
+
+def launch_geometry(cap: int, tile: int, B: int) -> LaunchGeometry:
+    """K1's launch geometry for B problems of `cap` stance slots in tiles
+    of `tile`: CLUSTER blocks a tile, tile // CLUSTER problems a block,
+    one thread per (slot, problem) up to 8 problems, 256 threads a block
+    above. Raises ValueError on a shape the kernel does not take
+    (solve_plain takes any)."""
+    if cap != KERNEL_CAP:
+        raise ValueError(f"qp_phase kernel: cap {cap}, the kernel is "
+                         f"compiled for cap {KERNEL_CAP}")
+    if tile % CLUSTER or tile // CLUSTER not in BLOCK_PROBLEMS:
+        raise ValueError(f"qp_phase kernel: tile {tile} is not one of "
+                         f"{[CLUSTER * p for p in BLOCK_PROBLEMS]}")
+    if B < tile or B % tile:
+        raise ValueError(f"qp_phase kernel: batch {B} is not a positive "
+                         f"multiple of the tile {tile}")
+    pb = tile // CLUSTER
+    ppt = pb // 8 if pb > 8 else 1
+    threads = cap * (pb // ppt)
+    n, m = 3 * cap, 5 * cap
+    floats = (n * (n + 1) + 2 * cap * (cap + 1) + 2 * m
+              + pb * (n + 3 * m + n + 9 * cap + 6 * cap + n)
+              + (threads // 32) * 6 * pb + 6 * pb + 2 * pb)
+    return LaunchGeometry(pb, CLUSTER, threads, (B // tile) * CLUSTER,
+                          4 * floats)
+
+
+_CLUSTERS_CHECKED = set()   # (tile, B) whose cluster fits the card
+
+
+def max_active_clusters(tile: int, B: int, cap: int = KERNEL_CAP) -> int:
+    """Clusters of a B-problem launch that the card can hold at once
+    (cudaOccupancyMaxActiveClusters)."""
+    lib = _cfunc()
+    out = ctypes.c_int(0)
+    err = lib.qrw_qp_phase_max_active_clusters(cap, tile, B,
+                                               ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"qp_phase kernel: cluster occupancy query "
+                           f"failed: error {err}")
+    return int(out.value)
 
 
 def _check(name, t, shape, dtype, device):
@@ -322,8 +382,9 @@ def _check(name, t, shape, dtype, device):
 
 def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
             tile, check_every, stop_at_eps):
-    """Launch the kernel on the current stream. Returns
-    (x, y, z, res (5, B)) with res rows pri, dua, n1, n2, it_conv."""
+    """Launch the kernel on the current stream: a cluster of CLUSTER
+    blocks per tile (`launch_geometry`). Returns (x, y, z, res (5, B))
+    with res rows pri, dua, n1, n2, it_conv."""
     global KERNEL_LAUNCHES
     n, B = q.shape
     cap = n // 3
@@ -340,20 +401,30 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
     _check("l", data.l, (m,), f32, dev)
     _check("u", data.u, (m,), f32, dev)
     _check("phases_of", ph, (B // tile,), torch.int32, dev)
-    if B % tile or not 32 <= tile <= 1024 or tile % 32:
-        raise ValueError(f"tile {tile} must be a multiple of 32 in "
-                         f"[32, 1024] dividing the batch {B}")
+    if check_every < 1:
+        raise ValueError(f"check_every {check_every} < 1")
+    geo = launch_geometry(cap, tile, B)
     lib = _cfunc()
-    need = lib.qrw_qp_phase_smem_bytes(cap, tile)
+    built = (ctypes.c_int * 4)()
+    if (lib.qrw_qp_phase_geometry(cap, tile, built) != 0
+            or tuple(built) != (geo.problems_per_block, geo.cluster,
+                                geo.threads, geo.smem_bytes)):
+        raise RuntimeError(f"qp_phase kernel: the compiled launch geometry "
+                           f"{tuple(built)} is not {geo}")
     have = lib.qrw_qp_phase_max_smem_bytes()
-    if need > have:
-        raise ValueError(f"qp_phase kernel needs {need} B of shared memory "
-                         f"per block at cap={cap}, tile={tile}; the card "
+    if geo.smem_bytes > have:
+        raise ValueError(f"qp_phase kernel needs {geo.smem_bytes} B of "
+                         f"shared memory per block at tile={tile}; the card "
                          f"offers {have}")
+    if (tile, B) not in _CLUSTERS_CHECKED:
+        if max_active_clusters(tile, B, cap) < 1:
+            raise RuntimeError(f"qp_phase kernel: the card cannot hold one "
+                               f"cluster of {geo.cluster} blocks of "
+                               f"{geo.smem_bytes} B")
+        _CLUSTERS_CHECKED.add((tile, B))
     x = torch.empty((n, B), dtype=f32, device=dev)
     y = torch.empty((m, B), dtype=f32, device=dev)
     z = torch.empty((m, B), dtype=f32, device=dev)
-    ax = torch.empty((m, B), dtype=f32, device=dev)
     res = torch.empty((5, B), dtype=f32, device=dev)
     w12 = torch.cat([data.wtop.reshape(6), data.wbot.reshape(6)]).to(
         "cpu", torch.float32).numpy()
@@ -363,7 +434,7 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
         q.data_ptr(), BlS_tor.data_ptr(), x0.data_ptr(), y0.data_ptr(),
         data.Kbar_inv.data_ptr(), data.G1.data_ptr(), data.G2.data_ptr(),
         ph.data_ptr(), data.l.data_ptr(), data.u.data_ptr(),
-        x.data_ptr(), y.data_ptr(), z.data_ptr(), ax.data_ptr(),
+        x.data_ptr(), y.data_ptr(), z.data_ptr(),
         res.data_ptr(), ctypes.cast(w12_c, ctypes.c_void_p),
         B, cap, tile, P, int(n_iters), int(check_every), int(stop_at_eps),
         float(data.rho), float(data.alpha), float(data.mu),
