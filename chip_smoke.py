@@ -41,28 +41,36 @@ Phases (any failure ends the run with a non-zero exit):
    one K1 launch per cycle (counts set to 0 just before, read after).
 6. The whole slice with the kernel against the whole slice with the
    plain solver: B = 128, 2 cycles, from one carry.
-7. Kernel K3 (qrw_tpu_torch/csrc/qp_ns_refine.cu) against its plain
-   version on full-size problems (n = 192) of the entry point's
-   build_batch at B = 1024: three Newton-Schulz steps from a good seed
-   (the inverse of a 0.1 mm earlier state) and from rolled-stance seeds
-   (they diverge), no step from the good seed. X, resid and the bad
-   flags compared; timed at B = 4096 with CUDA events.
+7. Kernel K3 against its plain version on full-size problems (n = 192)
+   of the entry point's build_batch at B = 1024, both variants: the
+   resident one (qrw_tpu_torch/csrc/qp_ns_refine_tc.cu, 3xTF32 on the
+   tensor cores, a cluster of two blocks a problem), which n = 192
+   takes, and the general one (qrw_tpu_torch/csrc/qp_ns_refine.cu).
+   Three Newton-Schulz steps from a good seed (the inverse of a 0.1 mm
+   earlier state) and from rolled-stance seeds (they diverge), no step
+   from the good seed. X, resid, the finite pattern and the bad flags
+   compared; both variants, the plain version and the chain of torch.bmm
+   products timed at B = 4096 with CUDA events.
 8. Kernel K2 at the full shape n = 192, m = 512 against its plain
    version at B = 1024: one 50-iteration round cold and warm, one K_ref
    round, and whole solves, cold, then warm under "ns", "chol" and
    "stale". Flags and iteration counts equal except on the problems,
    counted and printed, whose K3 bad flag differed between the paths,
    whose adapted rho differs (cold solves), or whose termination
-   residual lies within 2x of its threshold ("stale"); timed at
-   B = 4096.
+   residual lies within 2x of its threshold ("stale" and "ns"); timed
+   at B = 4096.
 9. The whole full-size path (core/mpc.solve_mpc_batch_pallas) with the
    kernels against it with the plain versions at B = 512: cold, then
    warm "ns" and "stale" from the kernel path's carry, compared as in 8.
 10. The entry point at full width: qrw_tpu_torch.eval.kernel_profile at
    B = 4096, reps 5, tiles 16. Cold and warm-"ns" conv >= 0.99, K2 and
    K3 launch counts as worked out (counts set to 0 just before, read
-   just after; no launch of K2's dense variant), then one call per
-   policy with every output finite.
+   just after; no launch of K2's dense variant nor of K3's general
+   variant), then one call per policy with every output finite (and,
+   for "ns" 1, the plain path's conv beside the kernels'). Then
+   one warm "ns" 50-iteration call at B = 4096 split into its stages
+   (build, cone check, K assembly, K3, top-k and Cholesky, K2, recovery,
+   glue), each between synchronizations, timed with CUDA events.
 
 The second-to-last line of output is one JSON object describing the
 kernels, the line before it the card's name and power limit; the last
@@ -120,6 +128,10 @@ RECOVERY_BAR = 0.99
 # float32 outside the tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+# Dense TF32 on the tensor cores: K3's resident variant takes each float32
+# product as three TF32 products (3xTF32), so its bound counts 3 TF32
+# operations for every float32 one at this rate.
+PEAK_TF32_FLOPS = 495e12
 # Kernel vs plain version, both float32 on the card: the same update
 # equations with a different summation order in the two dense products.
 # The iteration is contractive, so the rounding difference stays near
@@ -143,12 +155,34 @@ SOLVE_TOL = 1e-3
 # of the same problems to 0.25 N; 1e-2 of the largest entry (25 N) is
 # that bound. Warm solves from one carry (no adaptation) keep SOLVE_TOL.
 COLD_SOLVE_TOL = 1e-2
-# K3 against its plain version (torch.matmul): the same float32 products
-# in another summation order, three Newton-Schulz steps contracting the
-# error. Measured 0.0 on the card at B = 64 (the kernel's k-ordered FMA
-# chain matched cuBLAS); 1e-5 of max|X| allows an order change, and the
-# residuals are held to 1e-4 relative.
+# Whole warm "ns" solves, kernel path against plain path: K3's resident
+# variant rounds K^-1 as 3xTF32 (within 1.4e-6 of its scale of cuBLAS's,
+# phase 7, both at the round-off floor of max|K X - I|), and from two
+# inverses that differ by rounding the round's ADMM iterations take
+# different iterates: max|dx| 3.6e-2 of a 25 N scale (1.4e-3) at
+# B = 1024 and 3.0e-2 at B = 512 on the card, over SOLVE_TOL. Neither
+# path is the more accurate, so they are held to the bound for two
+# solvers of the same problems, COLD_SOLVE_TOL (0.25 N).
+NS_SOLVE_TOL = COLD_SOLVE_TOL
+# K3 against its plain version (torch.matmul, cuBLAS in float32). The
+# resident variant takes each float32 product as three TF32 products
+# (3xTF32), which round differently from a float32 FMA chain. A CPU
+# emulation of its operand rounding (tests/test_torch_qp_full.py::
+# test_ns_refine_3xtf32_emulation) measured max|dX| 1.3e-6 of max|X| from
+# good seeds (the same at B = 256) and 3.0e-6 (4.3e-6 at B = 256) from the
+# rolled-stance seeds, whose divergence amplifies it over three steps;
+# the kernel adds each k-step's products into its sums in float32, so
+# the card matches it (1.4e-6 and 2.9e-6 at B = 1024). 1e-5 of max|X| is
+# 2.3x the worst; the general variant (float32 FMAs in k order, found
+# bit-equal to cuBLAS on the card) is held to the same bound.
 NS_TOL = 1e-5
+# The residual max|K X - I|: after three steps from a good seed it sits at
+# the float32 round-off floor (~7e-7), where any other rounding moves it
+# by its own size (emulation: 7.2e-7 absolute, 0.75 relative; 1.0e-6 at
+# B = 256). It is held to 1e-4 relative or 1e-5 absolute, whichever is
+# larger: 10x the emulated difference, 1000x below _factor's 1e-2 guard.
+NS_RESID_REL = 1e-4
+NS_RESID_ABS = 1e-5
 
 
 def log(msg):
@@ -159,6 +193,15 @@ def bound(flops, nbytes):
     """(bound_ms, bound_by): the larger of the operation time at the
     float32 peak and the byte time at the memory rate."""
     t_op = flops / PEAK_F32_FLOPS * 1e3
+    t_b = nbytes / PEAK_BYTES_S * 1e3
+    return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
+
+
+def bound_3xtf32(flops, nbytes):
+    """(bound_ms, bound_by) of a float32-accurate product chain on the
+    tensor cores: 3 TF32 operations per float32 operation at the TF32
+    peak, or the bytes at the memory rate, whichever is larger."""
+    t_op = 3 * flops / PEAK_TF32_FLOPS * 1e3
     t_b = nbytes / PEAK_BYTES_S * 1e3
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
@@ -856,8 +899,11 @@ def compare_solves(name, got, want, kpath, ppath, tol, excuse=None,
     reads residuals at the float32 round-off floor, ROADMAP queue 3), for
     the "stale" policy those reading a residual near its threshold (its
     refinement stalls at its noise floor next to the 1e-4 tolerances,
-    qrw_tpu/ops/qp_pallas.py:410-415). Returns the worst absolute
-    error."""
+    qrw_tpu/ops/qp_pallas.py:410-415), and for the "ns" policy the same
+    (K3's resident variant rounds its products as 3xTF32, so the refined
+    K^-1 differs from the plain one by ~1e-6 of its scale, and a residual
+    within 2x of its threshold may land on the other side). Returns the
+    worst absolute error."""
     excused = torch.zeros_like(want.converged)
     for rk, rp in zip(kpath.resids, ppath.resids):
         excused |= bad_flags(rk) != bad_flags(rp)
@@ -896,57 +942,103 @@ def compare_solves(name, got, want, kpath, ppath, tol, excuse=None,
     return worst
 
 
+def bmm_chain(K, X, ns_iters, T, P):
+    """The library yardstick of K3: its 2 ns_iters + 1 products as
+    torch.bmm calls (cuBLAS, TF32 off) into preallocated outputs. The
+    port never calls it."""
+    for _ in range(ns_iters):
+        torch.bmm(K, X, out=T)
+        torch.bmm(X, T, out=P)
+    torch.bmm(K, X, out=T)
+
+
 def check_ns_kernel(cfg, device):
-    """Phase 7: K3 against its plain version. Returns (max_abs_err,
-    (ms, lo, hi), (plain_ms, lo, hi), (bound_ms, bound_by)) of three
-    steps from a good seed at B = FULL_TIME_B, and the same for no step
-    (the "stale" policy's guard)."""
+    """Phase 7: K3's two variants against its plain version at B =
+    FULL_B, then timed at FULL_TIME_B. Returns (max_abs_err of the
+    resident variant, and for ns_iters 3 and 0 dicts of its time, the
+    general variant's, the plain version's, the bmm chain's and both
+    bounds)."""
     from qrw_tpu_torch.ops import qp_pallas as qpp
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls on"
     K, good = good_seed(cfg, FULL_B, device)
     rolled = torch.roll(good, 1, dims=0).contiguous()
+    assert qpp.ns_variant(K.shape[-1]) == "resident"
+    n_cl = qpp.ns_max_active_clusters()
+    log(f"K3 resident variant: a cluster of 2 blocks a problem, "
+        f"{n_cl} clusters on the card at once")
     worst = 0.0
-    for name, X0, ns in [("3 steps, good seed", good, 3),
-                         ("3 steps, rolled-stance seed", rolled, 3),
-                         ("no step, good seed", good, 0)]:
-        Xk, rk = qpp._ns_launch(K, X0, ns)
-        Xp, rp = qpp._ns_refine_plain(K, X0, ns)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(Xp)
-        n_fin = int((torch.isfinite(Xk) != fin).sum())
-        e = float((Xk - Xp)[fin].abs().max()) if bool(fin.any()) else 0.0
-        scale = float(Xp[fin].abs().max()) if bool(fin.any()) else 1.0
-        worst = max(worst, e)
-        rk_, rp_ = (torch.where(torch.isfinite(r), r, torch.full_like(
-            r, float("inf"))) for r in (rk, rp))
-        both = torch.isfinite(rk_) & torch.isfinite(rp_)
-        r_err = float(((rk_ - rp_).abs() / rp_.abs().clamp(min=1e-30))[
-            both].max()) if bool(both.any()) else 0.0
-        n_rinf = int((torch.isfinite(rk_) != torch.isfinite(rp_)).sum())
-        n_bad = int((bad_flags(rk) != bad_flags(rp)).sum())
-        n_near = int(((rp > 0.5e-2) & (rp < 2e-2)).sum())
-        log(f"K3 qp_ns_refine B={FULL_B} n=192 {name}: bad kernel "
-            f"{int(bad_flags(rk).sum())} plain {int(bad_flags(rp).sum())} "
-            f"(differing {n_bad}, resid within 2x of 1e-2: {n_near}); "
-            f"resid median {float(rp.median()):.3e}; max|dX| {e:.2e} of "
-            f"max|X| {scale:.3g}; finite pattern mismatches {n_fin}; resid "
-            f"rel err {r_err:.2e}, inf mismatches {n_rinf}")
-        assert n_fin == 0, "K3 finite pattern differs"
-        assert e <= NS_TOL * scale, f"K3 X: {e:.3e} > {NS_TOL} * {scale:.3g}"
-        assert n_rinf == 0 and r_err <= 1e-4, f"K3 resid rel err {r_err}"
-        assert n_bad <= n_near, f"{n_bad} K3 bad flags differ"
+    for variant in ("resident", "general"):
+        for name, X0, ns in [("3 steps, good seed", good, 3),
+                             ("3 steps, rolled-stance seed", rolled, 3),
+                             ("no step, good seed", good, 0)]:
+            Xk, rk = qpp._ns_launch(K, X0, ns, variant=variant)
+            Xp, rp = plain_ns_refine(K, X0, ns)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(Xp)
+            n_fin = int((torch.isfinite(Xk) != fin).sum())
+            e = float((Xk - Xp)[fin].abs().max()) if bool(fin.any()) else 0.0
+            scale = float(Xp[fin].abs().max()) if bool(fin.any()) else 1.0
+            if variant == "resident":
+                worst = max(worst, e)
+            rk_, rp_ = (torch.where(torch.isfinite(r), r, torch.full_like(
+                r, float("inf"))) for r in (rk, rp))
+            both = torch.isfinite(rk_) & torch.isfinite(rp_)
+            d_r = (rk_ - rp_).abs()
+            lim_r = torch.clamp(NS_RESID_REL * rp_.abs(), min=NS_RESID_ABS)
+            r_abs = float(d_r[both].max()) if bool(both.any()) else 0.0
+            r_rel = float((d_r / rp_.abs().clamp(min=1e-30))[both].max()) \
+                if bool(both.any()) else 0.0
+            n_rout = int((d_r > lim_r)[both].sum())
+            n_rinf = int((torch.isfinite(rk_) != torch.isfinite(rp_)).sum())
+            n_bad = int((bad_flags(rk) != bad_flags(rp)).sum())
+            n_near = int(((rp > 0.5e-2) & (rp < 2e-2)).sum())
+            log(f"K3 qp_ns_refine {variant} B={FULL_B} n=192 {name}: bad "
+                f"kernel {int(bad_flags(rk).sum())} plain "
+                f"{int(bad_flags(rp).sum())} (differing {n_bad}, resid "
+                f"within 2x of 1e-2: {n_near}); resid median "
+                f"{float(rp.median()):.3e}; max|dX| {e:.2e} of max|X| "
+                f"{scale:.3g} ({e / scale:.2e}); finite pattern mismatches "
+                f"{n_fin}; resid max|diff| {r_abs:.2e}, rel {r_rel:.2e}, "
+                f"outside max({NS_RESID_REL:g} rel, {NS_RESID_ABS:g}) "
+                f"{n_rout}, inf mismatches {n_rinf}")
+            assert n_fin == 0, "K3 finite pattern differs"
+            assert e <= NS_TOL * scale, (
+                f"K3 {variant} X: {e:.3e} > {NS_TOL} * {scale:.3g}")
+            assert n_rinf == 0 and n_rout == 0, f"K3 {variant} resid"
+            assert n_bad <= n_near, f"{n_bad} K3 bad flags differ"
     K, good = good_seed(cfg, FULL_TIME_B, device)
     n = K.shape[-1]
+    T, P = torch.empty_like(K), torch.empty_like(K)
+    X1 = torch.empty_like(K)
     out = []
     for ns in (3, 0):
         k_ms = time_ms(lambda: qpp._ns_launch(K, good, ns))
+        g_ms = time_ms(lambda: qpp._ns_launch(K, good, ns,
+                                              variant="general"))
         p_ms = time_ms(lambda: qpp._ns_refine_plain(K, good, ns))
-        b = bound(*k3_work(FULL_TIME_B, n, ns))
-        log(f"K3 qp_ns_refine B={FULL_TIME_B} ns_iters={ns}: kernel "
-            f"{k_ms[0]:.3f} ms [{k_ms[1]:.3f}, {k_ms[2]:.3f}] plain "
-            f"{p_ms[0]:.3f} ms [{p_ms[1]:.3f}, {p_ms[2]:.3f}] (median "
-            f"[min, max] of 7 windows); bound {b[0]:.4f} ms ({b[1]})")
-        out.append((k_ms, p_ms, b))
-    return (worst,) + out[0] + (out[1],)
+        l_ms = time_ms(lambda: bmm_chain(K, good, ns, T, P))
+        c_ms = time_ms(lambda: torch.mul(good + good.transpose(1, 2), 0.5,
+                                         out=X1))
+        work = k3_work(FULL_TIME_B, n, ns)
+        b, b32 = bound_3xtf32(*work), bound(*work)
+        log(f"K3 qp_ns_refine B={FULL_TIME_B} ns_iters={ns}: resident "
+            f"{k_ms[0]:.3f} ms [{k_ms[1]:.3f}, {k_ms[2]:.3f}], general "
+            f"{g_ms[0]:.3f} ms [{g_ms[1]:.3f}, {g_ms[2]:.3f}] (of which the "
+            f"wrapper's re-centring pass {c_ms[0]:.3f} ms), plain "
+            f"{p_ms[0]:.3f} ms [{p_ms[1]:.3f}, {p_ms[2]:.3f}], "
+            f"{2 * ns + 1} torch.bmm {l_ms[0]:.3f} ms [{l_ms[1]:.3f}, "
+            f"{l_ms[2]:.3f}] (median [min, max] of 7 windows); 3xTF32 "
+            f"bound {b[0]:.4f} ms ({b[1]}): resident {100 * b[0] / k_ms[0]:.1f}"
+            f"%, general {100 * b[0] / g_ms[0]:.1f}%; float32 bound "
+            f"{b32[0]:.4f} ms ({b32[1]}): resident "
+            f"{100 * b32[0] / k_ms[0]:.1f}%, general "
+            f"{100 * b32[0] / g_ms[0]:.1f}%; resident "
+            f"{g_ms[0] / k_ms[0]:.2f}x faster than general, "
+            f"{l_ms[0] / k_ms[0]:.2f}x than the bmm chain")
+        out.append({"ms": k_ms[0], "general_ms": g_ms[0],
+                    "recentre_ms": c_ms[0], "plain_ms": p_ms[0],
+                    "library_ms": l_ms[0], "bound": b, "bound_f32": b32})
+    return worst, out[0], out[1]
 
 
 def check_full_kernel(cfg, device):
@@ -976,12 +1068,13 @@ def check_full_kernel(cfg, device):
         with solver_path("plain") as pp:
             want = qpp.solve(H2, q2, A, l2, u2, s, refactor=policy, **carry)
         torch.cuda.synchronize()
-        floor = None if policy != "stale" else (
+        floor = None if policy == "chol" else (
             near_threshold(got, H2, A, q2, s) | near_threshold(want, H2, A,
                                                              q2, s))
         compare_solves(f"K2 qp_admm B={FULL_B} whole warm solve "
                        f"\"{policy}\" (1 mm shift, schedule [50])", got, want,
-                       kp, pp, SOLVE_TOL, floor, "near the tolerance")
+                       kp, pp, NS_SOLVE_TOL if policy == "ns" else SOLVE_TOL,
+                       floor, "near the tolerance")
     # single rounds on fixed inputs
     K, rho_vec, sig = full_kkt(H, q, A, l, u, cone)
     K2, rho_vec2, sig2 = full_kkt(H2, q2, A, l2, u2, cone)
@@ -1095,8 +1188,10 @@ def check_full_path(cfg, device):
         if name == "cold":
             tol, why = COLD_SOLVE_TOL, "adapted rho differing"
             excuse = rho_differs(got[2], want[2])
-        elif "stale" in name:
+        else:
             why = "near the tolerance"
+            if "ns" in name:
+                tol = NS_SOLVE_TOL
             excuse = (near_threshold(got[2], H2, A, q2, s)
                       | near_threshold(want[2], H2, A, q2, s))
         compare_solves(f"full path B={PATH_B} {name} (solver)", got[2],
@@ -1126,17 +1221,21 @@ def run_entry_point(cfg, device, argv=PROFILE_ARGV):
     qp_pallas.KERNEL_LAUNCHES = 0
     qp_pallas.DENSE_KERNEL_LAUNCHES = 0
     qp_pallas.NS_KERNEL_LAUNCHES = 0
+    qp_pallas.NS_GENERAL_KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     res = kernel_profile.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k2, k3 = qp_pallas.KERNEL_LAUNCHES, qp_pallas.NS_KERNEL_LAUNCHES
     k2_dense = qp_pallas.DENSE_KERNEL_LAUNCHES
+    k3_general = qp_pallas.NS_GENERAL_KERNEL_LAUNCHES
     log(f"entry point python -m qrw_tpu_torch.eval.kernel_profile "
         f"{' '.join(argv)}: {wall:.2f} s; K2 launches {k2} ({k2_dense} of "
-        f"the dense variant), K3 launches {k3}")
+        f"the dense variant), K3 launches {k3} ({k3_general} of the "
+        f"general variant)")
     log(json.dumps(res))
     assert k2_dense == 0, f"{k2_dense} launches of K2's dense variant"
+    assert k3_general == 0, f"{k3_general} launches of K3's general variant"
     assert k2 == PROFILE_K2_LAUNCHES * len(tiles), f"{k2} K2 launches"
     assert k3 == PROFILE_K3_LAUNCHES * len(tiles), f"{k3} K3 launches"
     for tile in tiles:
@@ -1163,7 +1262,116 @@ def run_entry_point(cfg, device, argv=PROFILE_ARGV):
             f"{float(sol.converged.float().mean()):.4f}, non-finite "
             f"outputs {bad}")
         assert not bad, f"{policy}: non-finite {bad}"
+        if (policy, iters) == ("ns", 1):
+            # one iteration from the carried solution leaves most
+            # problems at their threshold: the plain path's conv beside
+            # the kernels', a measurement, not a check
+            with solver_path("plain"):
+                _, _, sol_p = tm.solve_mpc_batch_pallas(
+                    cfg, xs, fs, state=st, settings=s, refactor=policy,
+                    schedule=[iters])
+            log(f"entry point inputs, warm \"ns\" 1 it with the plain "
+                f"versions: conv {float(sol_p.converged.float().mean()):.4f}"
+                f", converged flags differing from the kernels' "
+                f"{int((sol.converged != sol_p.converged).sum())}")
     return k2, k3, res
+
+
+class stage_timer:
+    """Wrap module functions so that every call is timed with CUDA events
+    between two synchronizations; `ms[label]` sums its milliseconds and
+    `calls[label]` counts its calls. An outer stage's time includes the
+    stages it calls."""
+
+    def __init__(self, targets):
+        self.targets = targets          # [(label, module, attribute)]
+        self.ms = {label: 0.0 for label, _, _ in targets}
+        self.calls = {label: 0 for label, _, _ in targets}
+
+    def __enter__(self):
+        self.saved = [(mod, attr, getattr(mod, attr))
+                      for _, mod, attr in self.targets]
+        for (label, mod, attr), (_, _, fn) in zip(self.targets, self.saved):
+            setattr(mod, attr, self._timed(label, fn))
+        return self
+
+    def _timed(self, label, fn):
+        def timed(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            torch.cuda.synchronize()
+            self.ms[label] += a.elapsed_time(b)
+            self.calls[label] += 1
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def split_ns_cycle(cfg, device, B=FULL_TIME_B, reps=5):
+    """Phase 10b: one warm "ns" 50-iteration call of
+    solve_mpc_batch_pallas at B, split into its stages (CUDA events
+    between synchronizations, mean of `reps` calls after one warm-up).
+    Returns {stage: ms} with the whole call's time with and without
+    the synchronizations."""
+    from qrw_tpu_torch.core import mpc as tm
+    from qrw_tpu_torch.eval.kernel_profile import build_batch
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    s = full_settings()
+    xr, fs = build_batch(cfg, B, np.random.default_rng(0))
+    xs, fs = torch.as_tensor(xr, device=device), torch.as_tensor(
+        fs, device=device)
+    _, st, _ = tm.solve_mpc_batch_pallas(cfg, xs, fs, settings=s)
+    call = lambda: tm.solve_mpc_batch_pallas(
+        cfg, xs, fs, state=st, settings=s, refactor="ns", schedule=[50])
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / reps * 1e3
+    targets = [("build_qp_compact", tm, "build_qp_compact"),
+               ("precondition", qpp, "precondition"),
+               ("cone check (host read)", qpp, "check_cone"),
+               ("_build_K", qpp, "_build_K"),
+               ("_factor", qpp, "_factor"),
+               ("K3", qpp, "_ns_refine"),
+               ("Cholesky of the cap worst", qpp, "_chol_inv"),
+               ("K2 round", qpp, "_run_kernel"),
+               ("recover_dx", tm, "recover_dx"),
+               ("whole call", tm, "solve_mpc_batch_pallas")]
+    with stage_timer(targets) as tmr:
+        for _ in range(reps):
+            call()
+    ms = {k: v / reps for k, v in tmr.ms.items()}
+    assert tmr.calls["K3"] == reps and tmr.calls["K2 round"] == reps
+    top = ("build_qp_compact", "precondition", "cone check (host read)",
+           "_build_K", "_factor", "K2 round", "recover_dx")
+    split = {
+        "build_qp_compact": ms["build_qp_compact"],
+        "cone check (host read)": ms["cone check (host read)"],
+        "_build_K": ms["_build_K"],
+        "K3": ms["K3"],
+        "top-k and Cholesky (_factor less K3)": ms["_factor"] - ms["K3"],
+        "of which the Cholesky of the cap worst":
+            ms["Cholesky of the cap worst"],
+        "K2 round": ms["K2 round"],
+        "recover_dx": ms["recover_dx"],
+        "precondition": ms["precondition"],
+        "glue (the rest)": ms["whole call"] - sum(ms[k] for k in top),
+        "whole call, split": ms["whole call"],
+        "whole call, unsplit (host clock)": plain_ms}
+    log(f"warm \"ns\" 50 cycle at B={B}, split (ms, mean of {reps} calls "
+        f"with a synchronization around each stage): " + "; ".join(
+            f"{k} {v:.3f}" for k, v in split.items()))
+    return split
 
 
 def main() -> int:
@@ -1185,7 +1393,8 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {kernels.BUILD_SECONDS if kernels.BUILD_SECONDS is None else round(kernels.BUILD_SECONDS, 2)} s)")
     for line in kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(w in line for w in ("registers", "spill", "smem",
+                                   "entry function")):
             log(f"  ptxas: {line.strip()}")
 
     cfg = Config()
@@ -1200,11 +1409,12 @@ def main() -> int:
     k2_launches = run_rescue_path(cfg, device)
     launches, _ = run_main_path(cfg, device)
     check_slice(cfg, ps, device)
-    err3, k3_ms, p3_ms, k3_bound, k3_ns0 = check_ns_kernel(cfg, device)
+    err3, k3, k3_ns0 = check_ns_kernel(cfg, device)
     err4, k4_ms, p4_ms, k4_bound, k4_ref, k4_variants = check_full_kernel(
         cfg, device)
     check_full_path(cfg, device)
     k2_full, k3_launches, _ = run_entry_point(cfg, device)
+    split_ns_cycle(cfg, device)
 
     log(json.dumps({"kernels": [{
         "name": "qp_phase", "route": "cuda",
@@ -1229,13 +1439,20 @@ def main() -> int:
         "k_ref_ms": k4_ref[0][0], "k_ref_plain_ms": k4_ref[1][0],
         "k_ref_bound_ms": k4_ref[2][0], "variants": k4_variants}, {
         "name": "qp_ns_refine", "route": "cuda",
-        "source": "qrw_tpu_torch/csrc/qp_ns_refine.cu",
+        "source": "qrw_tpu_torch/csrc/qp_ns_refine_tc.cu",
         "replaces": "qrw_tpu/ops/qp_pallas.py:194",
         "launches": k3_launches, "max_abs_err": err3,
-        "ms": k3_ms[0], "plain_ms": p3_ms[0], "bound_ms": k3_bound[0],
-        "bound_by": k3_bound[1], "library_ms": None,
-        "ns0_ms": k3_ns0[0][0], "ns0_plain_ms": k3_ns0[1][0],
-        "ns0_bound_ms": k3_ns0[2][0]}]}))
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
+        "library_ms": k3["library_ms"],
+        "bound_f32_ms": k3["bound_f32"][0],
+        "general_source": "qrw_tpu_torch/csrc/qp_ns_refine.cu",
+        "general_ms": k3["general_ms"], "recentre_ms": k3["recentre_ms"],
+        "ns0_ms": k3_ns0["ms"], "ns0_general_ms": k3_ns0["general_ms"],
+        "ns0_plain_ms": k3_ns0["plain_ms"],
+        "ns0_library_ms": k3_ns0["library_ms"],
+        "ns0_bound_ms": k3_ns0["bound"][0],
+        "ns0_bound_f32_ms": k3_ns0["bound_f32"][0]}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,10 +22,11 @@ Port of qrw_tpu/ops/qp_pallas.py (`solve`, `_build_K`, `_chol_inv`,
 * `early_exit` skips the remaining rounds once every problem passes.
 
 `_run_kernel` and `_ns_refine` are the dispatchers: CUDA tensors go to
-the hand-written kernels in qrw_tpu_torch/csrc/qp_admm.cu and
-qrw_tpu_torch/csrc/qp_ns_refine.cu, CPU tensors to `_run_kernel_plain`
-and `_ns_refine_plain`, the same equations in plain PyTorch. A CUDA
-tensor never falls back to a plain version.
+the hand-written kernels in qrw_tpu_torch/csrc/qp_admm.cu and (K3, by n,
+`ns_variant`) qrw_tpu_torch/csrc/qp_ns_refine_tc.cu or qp_ns_refine.cu,
+CPU tensors to `_run_kernel_plain` and `_ns_refine_plain`, the same
+equations in plain PyTorch. A CUDA tensor never falls back to a plain
+version.
 """
 
 from __future__ import annotations
@@ -40,11 +41,13 @@ from qrw_tpu_torch.ops import qp
 
 # Launches of the CUDA kernels on CUDA tensors: K2 (one per ADMM round,
 # either variant), of them the dense variant's alone (cone=None), and K3
-# (one per Newton-Schulz refinement in `_factor`). chip_smoke.py resets
-# them before a run of the main path and reads them after.
+# (one per Newton-Schulz refinement in `_factor`, either variant), of them
+# the general variant's alone. chip_smoke.py resets them before a run of
+# the main path and reads them after.
 KERNEL_LAUNCHES = 0
 DENSE_KERNEL_LAUNCHES = 0
 NS_KERNEL_LAUNCHES = 0
+NS_GENERAL_KERNEL_LAUNCHES = 0
 
 
 class PallasQPResult(NamedTuple):
@@ -123,16 +126,14 @@ def _ns_refine_plain(K, X0, ns_iters: int):
 
 def _ns_refine(K, X0, ns_iters: int):
     """(X_refined, resid): kernel K3 for CUDA tensors, its plain version
-    for CPU tensors, ValueError elsewhere. X is re-centred as
-    0.5 (X + X') afterwards, as the JAX package does outside its
-    kernel."""
+    for CPU tensors, ValueError elsewhere. X comes re-centred as
+    0.5 (X + X'), as the JAX package does outside its kernel."""
     if K.device.type == "cpu":
         X, resid = _ns_refine_plain(K, X0, ns_iters)
-    elif K.device.type == "cuda":
-        X, resid = _ns_launch(K.contiguous(), X0.contiguous(), ns_iters)
-    else:
-        raise ValueError(f"qp_pallas: unsupported device {K.device}")
-    return 0.5 * (X + X.transpose(1, 2)), resid
+        return 0.5 * (X + X.transpose(1, 2)), resid
+    if K.device.type == "cuda":
+        return _ns_launch(K.contiguous(), X0.contiguous(), ns_iters)
+    raise ValueError(f"qp_pallas: unsupported device {K.device}")
 
 
 def _factor(K, kinv_init=None, ns_iters: int = 3, seed_scale=None):
@@ -291,6 +292,10 @@ def _cfunc():
         lib.qrw_qp_admm_cone_solve.restype = _I
         lib.qrw_ns_refine.argtypes = [_P] * 5 + [_I] * 3 + [_P]
         lib.qrw_ns_refine.restype = _I
+        lib.qrw_ns_refine_tc.argtypes = [_P] * 4 + [_I] * 3 + [_P]
+        lib.qrw_ns_refine_tc.restype = _I
+        lib.qrw_ns_refine_tc_max_active_clusters.argtypes = [_P]
+        lib.qrw_ns_refine_tc_max_active_clusters.restype = _I
     return lib
 
 
@@ -381,32 +386,77 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
     return x, y, z, res[0], res[1], res[2], res[3]
 
 
-def _ns_launch(K, X0, ns_iters: int):
-    """Launch K3 on the current stream: one block per problem, with a
-    (B, 2, n, n) scratch for K X and the ping-pong iterate. Returns (X,
-    resid)."""
-    global NS_KERNEL_LAUNCHES
+# n of K3's resident variant (csrc/qp_ns_refine_tc.cu); every other n
+# takes the general variant (csrc/qp_ns_refine.cu)
+NS_RESIDENT_N = 192
+
+
+def ns_variant(n: int) -> str:
+    """K3's variant for n x n problems: "resident" (3xTF32 tensor-core
+    products, each problem's K, X and K X held in the shared memory of a
+    cluster of two blocks; compiled for n = 192, the full-size MPC's n)
+    or "general" (any n, one block per problem, products streamed in
+    tiles through shared memory, a scratch in device memory)."""
+    return "resident" if int(n) == NS_RESIDENT_N else "general"
+
+
+def ns_max_active_clusters() -> int:
+    """Clusters of the resident variant the card holds at once (one
+    problem each); raises if the kernel cannot be resident at all."""
+    lib = _cfunc()
+    out = ctypes.c_int(0)
+    err = lib.qrw_ns_refine_tc_max_active_clusters(ctypes.byref(out))
+    if err != 0 or out.value < 1:
+        raise RuntimeError(f"ns_refine resident kernel: no cluster fits the "
+                           f"card (CUDA error {err}, {out.value} clusters)")
+    return out.value
+
+
+def _ns_launch(K, X0, ns_iters: int, variant: str = None):
+    """Launch K3 on the current stream: the variant `ns_variant(n)`
+    picks, or the one named. "resident": a cluster of two blocks per
+    problem, the re-centring folded into its store. "general": one
+    block per problem with a (B, 2, n, n) scratch, re-centred here.
+    Returns (X re-centred as 0.5 (X + X'), resid)."""
+    global NS_KERNEL_LAUNCHES, NS_GENERAL_KERNEL_LAUNCHES
     B, n = K.shape[0], K.shape[-1]
+    variant = ns_variant(n) if variant is None else variant
+    if variant not in ("resident", "general"):
+        raise ValueError(f"unknown ns_refine variant {variant!r}")
+    if variant == "resident" and n != NS_RESIDENT_N:
+        raise ValueError(f"ns_refine resident kernel: compiled for "
+                         f"n = {NS_RESIDENT_N}, not n = {n}")
     dev = K.device
     _check("K", K, (B, n, n), dev)
     _check("X0", X0, (B, n, n), dev)
-    if B < 1 or B > 2 ** 31 - 1:
+    if B < 1 or B > 2 ** 30:
         raise ValueError(f"batch {B} out of range")
     if ns_iters < 0:
         raise ValueError(f"ns_iters {ns_iters} < 0")
     lib = _cfunc()
     f32 = torch.float32
     X = torch.empty((B, n, n), dtype=f32, device=dev)
-    scratch = torch.empty((B, 2, n, n), dtype=f32, device=dev)
     resid = torch.empty((B,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.qrw_ns_refine(K.data_ptr(), X0.data_ptr(), X.data_ptr(),
-                            scratch.data_ptr(), resid.data_ptr(), B, n,
-                            int(ns_iters), stream)
+    if variant == "resident":
+        if K.data_ptr() % 16 or X0.data_ptr() % 16:
+            raise ValueError("K, X0: not 16-byte aligned (the kernel "
+                             "copies 16 bytes at a time)")
+        err = lib.qrw_ns_refine_tc(K.data_ptr(), X0.data_ptr(), X.data_ptr(),
+                                   resid.data_ptr(), B, n, int(ns_iters),
+                                   stream)
+    else:
+        scratch = torch.empty((B, 2, n, n), dtype=f32, device=dev)
+        err = lib.qrw_ns_refine(K.data_ptr(), X0.data_ptr(), X.data_ptr(),
+                                scratch.data_ptr(), resid.data_ptr(), B, n,
+                                int(ns_iters), stream)
     if err != 0:
-        raise RuntimeError(f"ns_refine kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"ns_refine {variant} kernel launch failed: CUDA "
+                           f"error {err}")
     NS_KERNEL_LAUNCHES += 1
+    if variant == "general":
+        NS_GENERAL_KERNEL_LAUNCHES += 1
+        X = 0.5 * (X + X.transpose(1, 2))
     return X, resid
 
 

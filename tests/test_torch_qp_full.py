@@ -18,6 +18,16 @@ Tolerances (measured on the CPU in brackets):
   three steps, ~500 with none)]. The bad flags (resid > 1e-2) must be
   equal; the test asserts that no resid lies within a factor 2 of 1e-2,
   where float32 rounding could flip a flag.
+* K3's resident CUDA variant takes each float32 product as three TF32
+  products (3xTF32); `test_ns_refine_3xtf32_emulation` runs Newton-Schulz
+  through an emulation of that rounding against the Pallas kernel: X
+  within 1e-5 of max|X| [1.3e-6 from good seeds, 3.0e-6 from rolled-
+  stance seeds, whose divergence amplifies it over three steps; 0.0 with
+  no step], resid within 1e-4 relative or 1e-5 absolute, whichever is
+  larger [7.2e-7 absolute (0.75 relative) at the round-off floor after
+  three good steps, 4.2e-7 (5.0e-4 relative) with none, 1.3e-6 relative
+  from rolled seeds], the same entries finite and the same bad flags.
+  chip_smoke.py sets the kernel's tolerances on the card from these.
 * `_factor`: the same problems take the Cholesky fallback, and each
   problem's inverse agrees within 1e-4 of its max|X| [4.0e-7; the two
   packages' Cholesky solves round differently].
@@ -101,9 +111,23 @@ def kkt():
     return K, good, np.roll(good, 1, axis=0)
 
 
-def _check_ns(Kn, X0, ns_iters):
-    X_j, r_j = jqpp._ns_refine(jnp.asarray(Kn), jnp.asarray(X0), ns_iters,
-                               interpret=True)
+@pytest.fixture(scope="module")
+def ns_ref():
+    """The Pallas kernel's (X, resid) in interpret mode, per (seed array
+    id, ns_iters), computed once for the module."""
+    cache = {}
+
+    def ref(Kn, X0, ns_iters):
+        key = (id(X0), ns_iters)
+        if key not in cache:
+            cache[key] = tuple(np.asarray(a) for a in jqpp._ns_refine(
+                jnp.asarray(Kn), jnp.asarray(X0), ns_iters, interpret=True))
+        return cache[key]
+    return ref
+
+
+def _check_ns(ns_ref, Kn, X0, ns_iters):
+    X_j, r_j = ns_ref(Kn, X0, ns_iters)
     X_t, r_t = tqpp._ns_refine(torch.as_tensor(Kn), torch.as_tensor(X0),
                                ns_iters)
     X_j, r_j, X_t, r_t = np.asarray(X_j), np.asarray(r_j), _np(X_t), _np(r_t)
@@ -120,7 +144,7 @@ def _check_ns(Kn, X0, ns_iters):
 
 @pytest.mark.parametrize("ns_iters", [3, 0])
 @pytest.mark.parametrize("seed", ["good", "rolled"])
-def test_ns_refine_parity(kkt, ns_iters, seed):
+def test_ns_refine_parity(kkt, ns_ref, ns_iters, seed):
     """K3's plain version against the Pallas kernel in interpret mode:
     three steps or none, from the inverse of a 0.1 mm earlier state
     (converges: a residual of ~1e-3 with no step, ~1e-6 after three) or
@@ -128,11 +152,80 @@ def test_ns_refine_parity(kkt, ns_iters, seed):
     leave 0.0076-0.0087 with no step, within a factor 2 of the 1e-2
     guard (ROADMAP queue 3)."""
     K, good, rolled = kkt
-    resid = _check_ns(K, good if seed == "good" else rolled, ns_iters)
+    resid = _check_ns(ns_ref, K, good if seed == "good" else rolled,
+                      ns_iters)
     if seed == "good":
         assert (resid < 1e-2).all(), resid
     else:
         assert (resid > 1e-2).all(), resid
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 on float32 values: the 13 low bits of the
+    significand rounded away, to nearest, ties away from zero; non-finite
+    values pass unchanged."""
+    x = np.asarray(x, np.float32)
+    bits = x.view(np.uint32).astype(np.uint64)
+    r = ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+    return np.where(np.isfinite(x), r, x)
+
+
+def _matmul_3xtf32(a, b):
+    """a b as the resident K3 takes it: each operand split as big =
+    tf32(a), small = tf32(a - big), then small b_big + big b_small +
+    big b_big, summed in float64 and rounded to float32 per product."""
+    a_big, b_big = _tf32_rna(a), _tf32_rna(b)
+    a_small, b_small = _tf32_rna(a - a_big), _tf32_rna(b - b_big)
+    f64 = lambda u, v: np.matmul(u.astype(np.float64), v.astype(np.float64))
+    return (f64(a_small, b_big) + f64(a_big, b_small)
+            + f64(a_big, b_big)).astype(np.float32)
+
+
+def _ns_refine_3xtf32(Kn, X, ns_iters):
+    """K3's Newton-Schulz steps and residual through `_matmul_3xtf32`,
+    the updates in float32."""
+    eye = np.eye(Kn.shape[-1], dtype=np.float32)
+    for _ in range(ns_iters):
+        X = np.float32(2.0) * X - _matmul_3xtf32(X, _matmul_3xtf32(Kn, X))
+    R = np.abs(_matmul_3xtf32(Kn, X) - eye)
+    return X, R.reshape(len(Kn), -1).max(axis=1)
+
+
+@pytest.mark.parametrize("ns_iters", [3, 0])
+@pytest.mark.parametrize("seed", ["good", "rolled"])
+def test_ns_refine_3xtf32_emulation(kkt, ns_ref, ns_iters, seed):
+    """K3's resident CUDA variant rounds its products as 3xTF32, not as a
+    float32 FMA chain. The emulation of that rounding, against the Pallas
+    kernel in interpret mode, sets the tolerances chip_smoke.py holds the
+    kernel to (measured errors in the module docstring): X within 1e-5 of
+    max|X|, resid within max(1e-4 relative, 1e-5), the same finite
+    pattern and the same bad flags."""
+    K, good, rolled = kkt
+    X0 = good if seed == "good" else rolled
+    X_j, r_j = ns_ref(K, X0, ns_iters)
+    with np.errstate(over="ignore", invalid="ignore"):
+        X_e, r_e = _ns_refine_3xtf32(K, X0, ns_iters)
+    X_e = 0.5 * (X_e + X_e.transpose(0, 2, 1))
+    fin = np.isfinite(X_j)
+    np.testing.assert_array_equal(np.isfinite(X_e), fin)
+    scale = np.abs(X_j[fin]).max()
+    np.testing.assert_allclose(X_e[fin], X_j[fin], rtol=0, atol=1e-5 * scale)
+    lim = np.maximum(1e-4 * np.abs(r_j), 1e-5)
+    assert (np.abs(r_e - r_j) <= lim).all(), (r_e, r_j)
+    np.testing.assert_array_equal(r_e > 1e-2, r_j > 1e-2)
+
+
+@pytest.mark.parametrize("n", [96, 191, 192, 193, 384])
+def test_ns_variant_choice(n):
+    """K3's wrapper takes the resident variant at n = 192, the full-size
+    MPC's n (12 N), and the general variant at every other n; asked for
+    the resident variant at another n, it raises before any launch."""
+    assert 12 * N == tqpp.NS_RESIDENT_N == 192
+    assert tqpp.ns_variant(n) == ("resident" if n == 192 else "general")
+    if n != 192:
+        K = torch.zeros((2, n, n))
+        with pytest.raises(ValueError, match="compiled for n = 192"):
+            tqpp._ns_launch(K, K, 3, variant="resident")
 
 
 @pytest.mark.parametrize("ns_iters", [3, 0])
