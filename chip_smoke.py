@@ -12,7 +12,10 @@ Phases (any failure ends the run with a non-zero exit):
    iteration counts must be equal, x / y / z close. Both are timed with
    CUDA events (median of 7 windows, with the spread). The launch
    geometry is printed first: the grid, the cluster (blocks a tile) and
-   the SMs the launch covers.
+   the SMs the launch covers. The plain version is timed warm with
+   stop_at_eps on. 2b: the same at cap 48 (n = 144, m = 240) on a
+   phase-sorted batch of the heterogeneous fleet's union phase set
+   (trot, walk, bounding), with the clusters the card holds at once.
 3. Kernel K2 (qrw_tpu_torch/csrc/qp_admm.cu) against its plain version
    on the card, on rescue problems assembled as
    core/mpc.solve_mpc_batch_reduced assembles them from the same phase
@@ -26,6 +29,10 @@ Phases (any failure ends the run with a non-zero exit):
    rounds of 0 and 1 iterations that only the A products shape must be
    equal bit for bit; and whole solves from NaN- and inf-poisoned warm
    starts, kernel path against plain path, flags and counts equal.
+   3d: the same K2 checks at n = 144, m = 240 (the reduced cone at
+   cap 48) on rescue problems assembled from walk phases, with a K_ref
+   round beside every round; the bit check and the poisoned warm starts
+   run at this shape too.
 4. The rescue stage firing on the main path: a B = 1024 fleet through
    the entry point's functions at the CLI's rescue capacity (32), a few
    normal cycles, ONE crippled cycle (a 1-iteration phase solve, so
@@ -36,11 +43,22 @@ Phases (any failure ends the run with a non-zero exit):
    variant.
 5. The closed-loop trot fleet through qrw_tpu_torch.runtime.main
    .run_fleet at the CLI defaults: B = 1024, 10 cycles = 100 ticks,
-   rescue capacity 32. All heights finite, no latch, every robot upright
-   over the last 50 ticks, MPC convergence above the bar, and exactly
-   one K1 launch per cycle (counts set to 0 just before, read after).
+   rescue capacity 32, the real estimator; run_fleet runs the fleet
+   twice from the same carry (warm-up, then the timed run). All heights
+   finite, no latch, every robot upright over the last 50 ticks, MPC
+   convergence above the bar, and exactly one K1 launch per cycle
+   (counts set to 0 just before, read after).
+   5b. The heterogeneous fleet through runtime.main.run_hetero: B = 4096,
+   tile 128, 10 cycles (twice, as in 5), rescue capacity 128, the real
+   estimator on flat, bumpy and stairs terrain. Every state finite, no
+   latch, every robot upright (z > 0.15 m), MPC conv >= 0.85, one K1
+   launch per cycle, all at cap 48, and no K2 launch but the cone
+   variant's at n = 144. Then one crippled cycle from its carry fires
+   the rescue (128 lanes, K2 at n = 144; counts set to 0 just before)
+   and two recovery cycles follow.
 6. The whole slice with the kernel against the whole slice with the
-   plain solver: B = 128, 2 cycles, from one carry.
+   plain solver: B = 128, 2 cycles, from one carry. 6b: the same for
+   the heterogeneous slice at B = 384 (3 tiles, one a gait).
 7. Kernel K3 against its plain version on full-size problems (n = 192)
    of the entry point's build_batch at B = 1024, both variants: the
    resident one (qrw_tpu_torch/csrc/qp_ns_refine_tc.cu, 3xTF32 on the
@@ -83,6 +101,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -93,6 +112,13 @@ FLEET_B = 1024
 FLEET_CYCLES = 10
 SLICE_B = 128
 SLICE_CYCLES = 2
+HETERO_B = 4096                 # the heterogeneous fleet at full width
+HETERO_CYCLES = 10              # bench.py's hetero cell (bench.py:440)
+HETERO_SLICE_B = 384            # 3 tiles, one a gait
+HETERO_GAITS = ("trot", "walk", "bounding")     # make_hetero_fleet's
+# MPC convergence bar of the heterogeneous fleet: the JAX package's own
+# test (tests/test_fleet_hetero.py:39) holds its mixed fleet above 0.85.
+HETERO_CONV_BAR = 0.85
 RESCUE_R = (32, 128)            # K2 batch sizes: B // 32 at B = 1024, 4096
 RESCUE_SCHEDULE = [50, 150, 150, 100]
 RESCUE_CYCLES = (2, 1, 5)       # normal, crippled, recovery cycles
@@ -139,6 +165,15 @@ PEAK_TF32_FLOPS = 495e12
 # version against the Pallas kernel in tests/test_torch_qp_phase.py);
 # 1e-4 of each array's largest entry leaves a wide margin.
 REL_TOL = 1e-4
+# K1's early iterates, kernel against plain on every lane. At cap 48 the
+# lanes that diverge into the safeguard box (check_kernel) are chaotic:
+# on the CPU a 1e-7 relative change of q moves their x after 300
+# iterations by 91 N in the plain version alone, and by 6.3e-4 N after 10
+# iterations, where it moves the other lanes by 1.5e-5 N (B = 1024 of
+# phase 2b; tests/test_torch_qp_phase.py::test_diverging_lanes_are_chaotic
+# holds a smaller batch to the same picture). After 10 iterations every
+# lane is held to REL_TOL, 16x that change.
+EARLY_ITERS = 10
 # Whole rescue solves, kernel path against plain path: a few rounds, each
 # from its own Cholesky of K, and an OSQP rho adaptation between rounds
 # that reads the primal residual at its float32 round-off floor, so the
@@ -290,12 +325,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_batch(cfg, phase_ids, per_phase, rng):
+def phase_batch(cfg, phase_ids, per_phase, rng, phase_fs=None):
     """bench.py::phase_batch in numpy: xrefs (12, N+1, B), fsteps
-    (N_gait, 12, B), B = len(phase_ids) * per_phase."""
+    (N_gait, 12, B), B = len(phase_ids) * per_phase; phase_fs: the phase
+    set's footsteps (default the trot's)."""
     from qrw_tpu_torch.core import mpc_lane as ml
     N = cfg.n_steps
-    phase_fs = ml.trot_phase_fsteps(cfg)
+    if phase_fs is None:
+        phase_fs = ml.trot_phase_fsteps(cfg)
     B = len(phase_ids) * per_phase
     xrefs = np.zeros((12, N + 1, B), np.float32)
     xrefs[2, :, :] = 0.24474949993103629
@@ -327,11 +364,44 @@ def time_ms(fn, windows=7, reps=1):
     return float(np.median(out)), float(out.min()), float(out.max())
 
 
-def check_kernel(cfg, ps, device, B, tile):
-    """Phase 2. Returns (max_abs_err, (ms, lo, hi), (plain_ms, lo, hi),
-    (bound_ms, bound_by), extra) of the main path's configuration (warm,
-    stop_at_eps on); extra holds the launch geometry and the warm
-    stop_at_eps-off time."""
+def k1_near_threshold(args, kw, got, want, lanes):
+    """Of `lanes`, those whose termination test, at the earlier of the
+    kernel's and the plain version's passing checks, reads the plain
+    version's residual within a factor 2 of its threshold: the lane
+    passes at twice OSQP's tolerances and fails at half of them. A lane
+    there may pass one check earlier with one rounding than with the
+    other (on the CPU a 1e-7 relative change of q moves 0-3 of B = 4096
+    lanes of phase 2b by one check)."""
+    from qrw_tpu_torch.ops import qp_phase
+    c = torch.minimum(got.iters, want.iters)
+    near = torch.zeros_like(lanes)
+    for ci in sorted(set(c[lanes].tolist())):
+        kc = dict(kw, n_iters=int(ci), stop_at_eps=False)
+        wide = qp_phase.solve_plain(*args, eps_abs=2e-4, eps_rel=2e-4, **kc)
+        tight = qp_phase.solve_plain(*args, eps_abs=5e-5, eps_rel=5e-5,
+                                     **kc)
+        near |= lanes & (c == ci) & wide.converged & ~tight.converged
+    return near
+
+
+def check_kernel(cfg, ps, device, B, tile, phase_fs=None):
+    """Phase 2 (and 2b at cap 48 with the union set's phase_fs). Returns
+    (max_abs_err, (ms, lo, hi), (plain_ms, lo, hi), (bound_ms, bound_by),
+    extra) of the main path's configuration (warm, stop_at_eps on);
+    extra holds the launch geometry, the warm stop_at_eps-off time, the
+    most lanes excused and the early iterates' largest error. The plain
+    version is timed in that configuration only.
+
+    At cap 48 the bench's speeds (up to 1 m/s) take some walk problems
+    out of the shared metric's reach: they diverge into the safeguard
+    box, where the iteration is chaotic, so that two roundings of the
+    same problem end tens of newtons apart (EARLY_ITERS says how far).
+    Lanes that neither path converged are then excused from the
+    300-iteration value comparison and counted (at most 5% of B); every
+    lane, those included, is compared after EARLY_ITERS iterations.
+    Converged flags stay equal on every lane; iteration counts on every
+    lane but those excused and those near the tolerance
+    (k1_near_threshold), counted."""
     from qrw_tpu_torch.core import mpc_lane as ml
     from qrw_tpu_torch.ops import qp_phase
 
@@ -339,16 +409,22 @@ def check_kernel(cfg, ps, device, B, tile):
     n_cl = qp_phase.max_active_clusters(tile, B, ps.cap)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sms = min(geo.grid, n_cl * geo.cluster)     # one block an SM
-    log(f"K1 launch geometry B={B} tile={tile}: grid {geo.grid} blocks in "
+    log(f"K1 launch geometry cap={ps.cap} B={B} tile={tile}: grid "
+        f"{geo.grid} blocks in "
         f"clusters of {geo.cluster} (one cluster a tile), "
         f"{geo.problems_per_block} problems and {geo.threads} threads a "
         f"block, {geo.smem_bytes} B of shared memory a block; the card "
         f"holds {n_cl} such clusters at once: {sms} of {n_sm} SMs covered")
     assert sms >= min(geo.grid, 64), f"K1 covers {sms} SMs"
-    extra = {"grid": geo.grid, "cluster": geo.cluster, "sms": sms}
+    extra = {"grid": geo.grid, "cluster": geo.cluster, "sms": sms,
+             "clusters_resident": n_cl, "threads": geo.threads,
+             "smem_bytes": geo.smem_bytes}
     n_phases = B // tile
-    phase_ids = [(2 * i) % cfg.n_steps for i in range(n_phases)]
-    xr, fs = phase_batch(cfg, phase_ids, tile, np.random.default_rng(0))
+    n_set = ps.data.Kbar_inv.shape[0]
+    step = 2 if phase_fs is None else 7     # the union set: every gait
+    phase_ids = [(step * i) % n_set for i in range(n_phases)]
+    xr, fs = phase_batch(cfg, phase_ids, tile, np.random.default_rng(0),
+                         phase_fs)
     phases_of = torch.as_tensor(phase_ids, dtype=torch.int32, device=device)
     t = lambda a: torch.as_tensor(a, device=device)
     _, _, _, BlS, q, _ = ml.phase_problem(cfg, t(xr), t(fs), ps, phases_of,
@@ -374,29 +450,65 @@ def check_kernel(cfg, ps, device, B, tile):
             n_conv = int((got.converged != want.converged).sum())
             n_it = int((got.iters != want.iters).sum())
             errs = {}
+            keep = (got.converged | want.converged
+                    if phase_fs is not None else
+                    torch.ones_like(got.converged))
+            n_exc = int((~keep).sum())
+            # iteration counts that differ: on lanes neither path
+            # converged (chaotic), or where the earlier passing check
+            # read a residual near its threshold
+            it_diff = (got.iters != want.iters) & keep
+            near = k1_near_threshold(args, kw, got, want, it_diff)
+            n_near = int(near.sum())
+            n_it_bad = int((it_diff & ~near).sum())
+            extra["excused"] = max(extra.get("excused", 0), n_exc)
+            assert n_exc <= 0.05 * B, f"{n_exc} lanes diverged"
             for f in ("x", "y", "z"):
                 g, w = getattr(got, f), getattr(want, f)
                 assert torch.isfinite(g).all(), f"kernel {f} not finite"
+                g, w = g[:, keep], w[:, keep]
                 e = float((g - w).abs().max())
                 scale = max(1.0, float(w.abs().max()))
                 errs[f] = e
                 worst = max(worst, e)
                 assert e <= REL_TOL * scale, (
                     f"kernel vs plain {f}: {e:.3e} > {REL_TOL} * {scale:.3g}")
+            early = ""
+            if not stop:        # no termination check before 25 iterations
+                e_kw = dict(kw, n_iters=EARLY_ITERS)
+                ge = qp_phase.solve(*args, **e_kw)
+                we = qp_phase.solve_plain(*args, **e_kw)
+                torch.cuda.synchronize()
+                for f in ("x", "y", "z"):
+                    g, w = getattr(ge, f), getattr(we, f)
+                    e = float((g - w).abs().max())
+                    scale = max(1.0, float(w.abs().max()))
+                    early += f" max|d{f}| {e:.2e}"
+                    extra["early_max_abs_err"] = max(
+                        extra.get("early_max_abs_err", 0.0), e)
+                    assert e <= REL_TOL * scale, (
+                        f"kernel vs plain {f} after {EARLY_ITERS} "
+                        f"iterations: {e:.3e} > {REL_TOL} * {scale:.3g}")
+                early = (f"; after {EARLY_ITERS} iterations, every lane:"
+                         + early)
             k_ms = time_ms(lambda: qp_phase.solve(*args, **kw), reps=3)
-            p_ms = time_ms(lambda: qp_phase.solve_plain(*args, **kw))
-            log(f"K1 qp_phase B={B} tile={tile} warm={warm} "
+            p_ms = (time_ms(lambda: qp_phase.solve_plain(*args, **kw))
+                    if warm and stop else (float("nan"),) * 3)
+            log(f"K1 qp_phase cap={ps.cap} B={B} tile={tile} warm={warm} "
                 f"stop_at_eps={stop}: conv kernel "
                 f"{float(got.converged.float().mean()):.4f} plain "
                 f"{float(want.converged.float().mean()):.4f}, mean iters "
                 f"{float(got.iters.float().mean()):.1f}; flag mismatches "
-                f"conv {n_conv} iters {n_it}; max|dx| {errs['x']:.2e} "
-                f"max|dy| {errs['y']:.2e} max|dz| {errs['z']:.2e}; "
+                f"conv {n_conv} iters {n_it} (near the tolerance {n_near}, "
+                f"unexcused {n_it_bad}); lanes excused (neither "
+                f"path converged) {n_exc}; max|dx| {errs['x']:.2e} "
+                f"max|dy| {errs['y']:.2e} max|dz| {errs['z']:.2e}{early}; "
                 f"kernel {k_ms[0]:.3f} ms [{k_ms[1]:.3f}, {k_ms[2]:.3f}] "
                 f"plain {p_ms[0]:.3f} ms [{p_ms[1]:.3f}, {p_ms[2]:.3f}] "
                 f"(median [min, max] of 7 windows)")
             assert n_conv == 0, f"{n_conv} converged flags differ"
-            assert n_it == 0, f"{n_it} iteration counts differ"
+            assert n_it_bad == 0, f"{n_it_bad} iteration counts differ"
+            extra["iters_near"] = extra.get("iters_near", 0) + n_near
             if warm and stop:
                 timing = (k_ms, p_ms, bound(*k1_work(
                     B, ps.cap, ps.data.Kbar_inv.shape[0], tile, got.iters,
@@ -406,19 +518,24 @@ def check_kernel(cfg, ps, device, B, tile):
     return worst, timing[0], timing[1], timing[2], extra
 
 
-def rescue_problems(cfg, R, device, shift=0.0):
+def rescue_problems(cfg, R, device, shift=0.0, gait="trot"):
     """R support-reduced rescue QPs from the bench's phase batch (8
     problems a phase), assembled as core/mpc.solve_mpc_batch_reduced
-    assembles them: (H, q, A, l, u, cone)."""
+    assembles them: (H, q, A, l, u, cone). gait "trot": cap 2N (n = 96,
+    m = 160); "walk": walk phases at the union set's cap 3N (n = 144,
+    m = 240), the rescue of the heterogeneous fleet."""
     from qrw_tpu_torch.core import mpc as tm
+    from qrw_tpu_torch.core import mpc_lane as ml
     N = cfg.n_steps
+    cap = 2 * N if gait == "trot" else 3 * N
     phase_ids = [(3 * i) % N for i in range(R // 8)]
-    xr, fs = phase_batch(cfg, phase_ids, 8, np.random.default_rng(R))
+    xr, fs = phase_batch(cfg, phase_ids, 8, np.random.default_rng(R),
+                         ml.gait_phase_fsteps(cfg, gait))
     xr[:, 0, :] += shift
     t = lambda a: torch.as_tensor(np.ascontiguousarray(
         a.transpose(2, 0, 1)), device=device)
-    H, q, *_ = tm.build_qp_reduced(cfg, t(xr), t(fs), 2 * N)
-    cone, A, l, u = tm.reduced_constraints(cfg, 2 * N, R, device)
+    H, q, *_ = tm.build_qp_reduced(cfg, t(xr), t(fs), cap)
+    cone, A, l, u = tm.reduced_constraints(cfg, cap, R, device)
     return H, q, A, l, u, cone
 
 
@@ -432,10 +549,12 @@ def round_inputs(H, q, A, l, u, cone, s, rho):
         rho_vec, sig
 
 
-def check_rescue_kernel(cfg, device):
-    """Phase 3: K2 against its plain version. Returns (max_abs_err,
-    (ms, lo, hi), (plain_ms, lo, hi), (bound_ms, bound_by)) of one warm
-    50-iteration round at R = 32, the rescue's shape on the main path."""
+def check_rescue_kernel(cfg, device, gait="trot"):
+    """Phase 3 (3d with gait "walk": n = 144): K2 against its plain
+    version. Returns (max_abs_err, (ms, lo, hi), (plain_ms, lo, hi),
+    (bound_ms, bound_by), variants) of one warm 50-iteration round at
+    R = 32, the rescue's shape on the main path. With gait "walk" every
+    round is also run as a K_ref round (variants["k_ref"])."""
     from qrw_tpu_torch.core import mpc_lane as ml
     from qrw_tpu_torch.ops import qp_pallas as qpp
     s = ml.default_rescue_settings()
@@ -452,9 +571,11 @@ def check_rescue_kernel(cfg, device):
             qpp._run_kernel = kernel_round
 
     worst, out, variants = 0.0, None, {}
+    k_ref = gait != "trot"
     for R in RESCUE_R:
-        H, q, A, l, u, cone = rescue_problems(cfg, R, device)
-        H2, q2, _, _, _, _ = rescue_problems(cfg, R, device, shift=0.001)
+        H, q, A, l, u, cone = rescue_problems(cfg, R, device, gait=gait)
+        H2, q2, _, _, _, _ = rescue_problems(cfg, R, device, shift=0.001,
+                                             gait=gait)
         n, m = q.shape[1], A.shape[0]
         zeros = (torch.zeros_like(q), torch.zeros_like(l))
         rho0 = torch.full((R, 1), s.rho, device=device)
@@ -494,7 +615,7 @@ def check_rescue_kernel(cfg, device):
                 lim = SOLVE_TOL * max(1.0, float(w.abs().max()))
                 assert e <= lim, f"K2 {name} R={R} {f}: {e:.3e} > {lim:.3e}"
             rr = (got.rho / want.rho).flatten()
-            log(f"K2 qp_admm R={R} {name}: conv kernel "
+            log(f"K2 qp_admm n={n} R={R} {name}: conv kernel "
                 f"{float(got.converged.float().mean()):.4f} plain "
                 f"{float(want.converged.float().mean()):.4f}, mean iters "
                 f"{float(got.iters.float().mean()):.1f}; flag mismatches "
@@ -525,7 +646,7 @@ def check_rescue_kernel(cfg, device):
             p_ms = time_ms(lambda: qpp._run_kernel_plain(*args))
             b = bound(*k2_cone_work(R, n, m, RESCUE_SCHEDULE[0], cone))
             b_d = bound(*k2_work(R, n, m, RESCUE_SCHEDULE[0]))
-            log(f"K2 qp_admm R={R} one {RESCUE_SCHEDULE[0]}-iteration round "
+            log(f"K2 qp_admm n={n} R={R} one {RESCUE_SCHEDULE[0]}-iteration round "
                 f"{name}: converged cone kernel {int(flag(got).sum())} plain "
                 f"{int(flag(want).sum())} (mismatches {n_flag}, dense "
                 f"kernel {n_flag_d}); max|dx| {errs[0]:.2e} max|dy| "
@@ -539,13 +660,43 @@ def check_rescue_kernel(cfg, device):
             if name == "warm":
                 variants[R] = {"cone": variant(k_ms, b),
                                "dense": variant(d_ms, b_d)}
+            if k_ref:
+                # the refinement variant on the same round, K as built
+                Kmat = qpp._build_K(args[1], A, args[6], args[7], cone)
+                gr = kernel_round(*args, K=Kmat, cone=cone)
+                wr = qpp._run_kernel_plain(*args, K=Kmat)
+                torch.cuda.synchronize()
+                er = [float((g - w).abs().max()) for g, w in
+                      zip(gr[:3], wr[:3])]
+                for f, e, w in zip("xyz", er, wr[:3]):
+                    lim = REL_TOL * max(1.0, float(w.abs().max()))
+                    assert e <= lim, f"K2 K_ref R={R} {f}: {e:.3e} > {lim:.3e}"
+                    worst = max(worst, e)
+                n_flag_r = int((flag(gr) != flag(wr)).sum())
+                r_ms = time_ms(lambda: kernel_round(*args, K=Kmat,
+                                                    cone=cone), reps=5)
+                rp_ms = time_ms(lambda: qpp._run_kernel_plain(*args,
+                                                              K=Kmat))
+                b_r = bound(*k2_cone_work(R, n, m, RESCUE_SCHEDULE[0], cone,
+                                          k_ref=True))
+                log(f"K2 qp_admm n={n} R={R} K_ref round {name}: converged "
+                    f"kernel {int(flag(gr).sum())} plain "
+                    f"{int(flag(wr).sum())} (mismatches {n_flag_r}); "
+                    f"max|dx| {er[0]:.2e} max|dy| {er[1]:.2e} max|dz| "
+                    f"{er[2]:.2e}; kernel {r_ms[0]:.4f} ms [{r_ms[1]:.4f}, "
+                    f"{r_ms[2]:.4f}] (bound {b_r[0]:.5f} ms, {b_r[1]}), "
+                    f"plain {rp_ms[0]:.3f} ms")
+                assert n_flag_r == 0, f"{n_flag_r} K_ref round flags differ"
+                if name == "warm":
+                    variants[R]["k_ref"] = variant(r_ms, b_r)
+                    variants[R]["k_ref"]["plain_ms"] = rp_ms[0]
             if R == RESCUE_R[0] and name == "warm":
                 out = (k_ms, p_ms, b)
         k_ms = time_ms(lambda: solve_with(kernel_round, H2, q2, A, l, u, s,
                                           **wkw))
         p_ms = time_ms(lambda: solve_with(plain_round, H2, q2, A, l, u, s,
                                           **wkw))
-        log(f"K2 qp_admm R={R} whole warm rescue solve (Ruiz, Cholesky, "
+        log(f"K2 qp_admm n={n} R={R} whole warm rescue solve (Ruiz, Cholesky, "
             f"rounds): with the kernel {k_ms[0]:.3f} ms [{k_ms[1]:.3f}, "
             f"{k_ms[2]:.3f}], with the plain version {p_ms[0]:.3f} ms "
             f"[{p_ms[1]:.3f}, {p_ms[2]:.3f}]")
@@ -570,6 +721,8 @@ def check_cone_bits(cfg, device):
     rng = np.random.default_rng(7)
     for label, (H, q, A, l, u, cone) in [
             ("R=128 n=96 m=160", rescue_problems(cfg, 128, device)),
+            ("R=128 n=144 m=240", rescue_problems(cfg, 128, device,
+                                                  gait="walk")),
             (f"B={FULL_B} n=192 m=512", full_problems(cfg, FULL_B, device))]:
         B, n = q.shape
         m = A.shape[0]
@@ -623,13 +776,17 @@ def check_cone_nonfinite(cfg, device):
     iteration counts must agree as on a clean start."""
     from qrw_tpu_torch.core import mpc_lane as ml
     from qrw_tpu_torch.ops import qp_pallas as qpp
-    H, q, A, l, u, cone = rescue_problems(cfg, RESCUE_R[0], device)
     rs = ml.default_rescue_settings()
-    R = q.shape[0]
-    rescue = (f"R={R} n=96 rescue solve", (H, q, A, l, u), rs,
-              dict(cone=cone, schedule=RESCUE_SCHEDULE, early_exit=True,
-                   rho_init=torch.full((R, 1), rs.rho, device=device)),
-              torch.zeros_like(q), torch.zeros_like(l))
+    rescues = []
+    for gait in ("trot", "walk"):
+        H, q, A, l, u, cone = rescue_problems(cfg, RESCUE_R[0], device,
+                                              gait=gait)
+        R, n = q.shape
+        rescues.append((
+            f"R={R} n={n} rescue solve", (H, q, A, l, u), rs,
+            dict(cone=cone, schedule=RESCUE_SCHEDULE, early_exit=True,
+                 rho_init=torch.full((R, 1), rs.rho, device=device)),
+            torch.zeros_like(q), torch.zeros_like(l)))
     fs = full_settings()
     H, q, A, l, u, cone = full_problems(cfg, FULL_B, device)
     with solver_path("kernel"):
@@ -639,7 +796,7 @@ def check_cone_nonfinite(cfg, device):
                  precond=cold.precond, kinv_init=cold.kinv,
                  kinv_rho=cold.kinv_rho, refactor="chol"),
             cold.x, cold.y)
-    for label, prob, s, kw, x0, y0 in (rescue, full):
+    for label, prob, s, kw, x0, y0 in rescues + [full]:
         for poison in (float("nan"), float("inf")):
             xp, yp = x0.clone(), y0.clone()
             xp[::3, 0] = poison
@@ -658,7 +815,6 @@ def run_rescue_path(cfg, device):
     """Phase 4: the rescue stage firing on the main path. Returns the
     K2 launches of this run."""
     from qrw_tpu_torch.core import mpc_lane as ml
-    from qrw_tpu_torch.ops import qp_pallas, qp_phase
     from qrw_tpu_torch.runtime.main import rescue_capacity
     from qrw_tpu_torch.sim import fleet as fl
 
@@ -669,20 +825,18 @@ def run_rescue_path(cfg, device):
     kw = dict(tile=TILE, rescue_cap=cap, stop_at_eps=True)
     n_norm, n_crip, n_rec = RESCUE_CYCLES
     torch.cuda.synchronize()
-    qp_phase.KERNEL_LAUNCHES = 0
-    qp_pallas.KERNEL_LAUNCHES = 0
-    qp_pallas.DENSE_KERNEL_LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     carry, l1, c1 = fl.fleet_rollout(ctl, carry, n_norm, ps, n_iters=300,
                                      **kw)
-    k2_0 = qp_pallas.KERNEL_LAUNCHES
+    k2_0 = read_counts().k2
     carry, l2, c2 = fl.fleet_rollout(ctl, carry, n_crip, ps, n_iters=1, **kw)
-    k2_crip = qp_pallas.KERNEL_LAUNCHES - k2_0
+    k2_crip = read_counts().k2 - k2_0
     carry, l3, c3 = fl.fleet_rollout(ctl, carry, n_rec, ps, n_iters=300, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = qp_phase.KERNEL_LAUNCHES, qp_pallas.KERNEL_LAUNCHES
-    k2_dense = qp_pallas.DENSE_KERNEL_LAUNCHES
+    n = read_counts()
+    k1, k2, k2_dense = n.k1, n.k2, n.k2_dense
     conv = [c.converged.float().mean(dim=1).cpu().numpy() for c in
             (c1, c2, c3)]
     n_conv_crip = int(c2.converged.sum())
@@ -717,16 +871,14 @@ def run_rescue_path(cfg, device):
 def run_main_path(cfg, device):
     """Phase 5: the fleet through the entry point's functions at the
     CLI's default rescue capacity."""
-    from qrw_tpu_torch.ops import qp_pallas, qp_phase
     from qrw_tpu_torch.runtime.main import rescue_capacity, run_fleet
 
     cap = rescue_capacity(None, FLEET_B)
-    qp_phase.KERNEL_LAUNCHES = 0
-    qp_pallas.KERNEL_LAUNCHES = 0
-    carry, logs, cyc, wall = run_fleet(cfg, FLEET_B, TILE, 0, device,
-                                       FLEET_CYCLES, cap)
-    launches = qp_phase.KERNEL_LAUNCHES
-    k2 = qp_pallas.KERNEL_LAUNCHES
+    reset_counts()
+    carry, logs, cyc, wall, first = run_fleet(cfg, FLEET_B, TILE, 0, device,
+                                              FLEET_CYCLES, cap)
+    n = read_counts()
+    launches, k2 = n.k1, n.k2
     n_ticks = FLEET_CYCLES * cfg.k_mpc
     h = logs.base_pos[:, :, 2].cpu().numpy()
     err = logs.error.cpu().numpy()
@@ -734,8 +886,9 @@ def run_main_path(cfg, device):
     iters = cyc.iters.float().cpu().numpy()
     fired = int((cyc.rescued > 0).sum())
     ticks_s = FLEET_B * n_ticks / wall
-    log(f"fleet B={FLEET_B} tile={TILE} rescue cap {cap}: {FLEET_CYCLES} "
-        f"cycles = {n_ticks} ticks in {wall:.3f} s: {ticks_s:.1f} ticks/s "
+    log(f"fleet B={FLEET_B} tile={TILE} rescue cap {cap} (real estimator, "
+        f"the CLI's default): {FLEET_CYCLES} cycles = {n_ticks} ticks in "
+        f"{wall:.3f} s (first run {first:.3f} s): {ticks_s:.1f} ticks/s "
         f"aggregate, {FLEET_B * FLEET_CYCLES / wall:.1f} in-loop MPC "
         f"solves/s, MPC conv {conv.mean():.4f} (per cycle "
         f"{np.round(conv.mean(axis=1), 4).tolist()}), mean iters "
@@ -748,8 +901,8 @@ def run_main_path(cfg, device):
     up = np.abs(h[-50:] - cfg.h_ref) < 0.05
     assert up.all(), f"{int((~up.all(axis=0)).sum())} robots not upright"
     assert conv.mean() >= CONV_BAR, f"MPC conv {conv.mean():.4f}"
-    assert launches == FLEET_CYCLES, (
-        f"{launches} kernel launches for {FLEET_CYCLES} cycles")
+    assert launches == 2 * FLEET_CYCLES, (
+        f"{launches} kernel launches for twice {FLEET_CYCLES} cycles")
     return launches, ticks_s
 
 
@@ -768,6 +921,12 @@ def check_slice(cfg, ps, device):
         _, lp, cp = fl.fleet_rollout(ctl, carry, SLICE_CYCLES, ps, **kw)
     finally:
         qp_phase.solve = kernel_solve
+    compare_slices("slice", SLICE_B, lk, ck, lp, cp)
+
+
+def compare_slices(label, B, lk, ck, lp, cp):
+    """Kernel run (lk, ck) against plain run (lp, cp) of the same slice:
+    logs close, solver flags and iteration counts equal, no latch."""
     tol = {"base_pos": 1e-4, "base_quat": 1e-4, "f_mpc": 1e-2,
            "tau_ff": 1e-2}
     parts = []
@@ -776,13 +935,138 @@ def check_slice(cfg, ps, device):
         e = float((a - b).abs().max())
         lim = rel * max(1.0, float(b.abs().max()))
         parts.append(f"{f} {e:.2e} (limit {lim:.2e})")
-        assert e <= lim, f"slice kernel vs plain {f}: {e:.3e} > {lim:.3e}"
+        assert e <= lim, f"{label} kernel vs plain {f}: {e:.3e} > {lim:.3e}"
     n_flag = int((ck.converged != cp.converged).sum()
                  + (ck.iters != cp.iters).sum())
-    log(f"slice B={SLICE_B} {SLICE_CYCLES} cycles, kernel vs plain: "
+    log(f"{label} B={B} {SLICE_CYCLES} cycles, kernel vs plain: "
         + ", ".join(parts) + f"; solver flag mismatches {n_flag}")
     assert n_flag == 0, "converged/iters differ between kernel and plain"
-    assert not bool(lk.error.any()), "security latch in the slice run"
+    assert not bool(lk.error.any()), f"security latch in the {label} run"
+
+
+def reset_counts():
+    """Every kernel's launch counts to 0."""
+    from qrw_tpu_torch.ops import qp_pallas, qp_phase
+    qp_phase.CAP_LAUNCHES = {}
+    qp_pallas.DENSE_KERNEL_LAUNCHES = 0
+    qp_pallas.CONE_LAUNCHES_BY_N = {}
+    qp_pallas.NS_KERNEL_LAUNCHES = 0
+    qp_pallas.NS_GENERAL_KERNEL_LAUNCHES = 0
+
+
+class Counts(NamedTuple):
+    k1: int                 # K1 launches
+    k1_caps: dict           # of them by cap
+    k2: int                 # K2 launches, both variants
+    k2_dense: int           # of them the dense variant's
+    k2_cone: dict           # of them the cone variant's by n
+    k3: int                 # K3 launches, both variants
+    k3_general: int         # of them the general variant's
+
+
+def read_counts() -> Counts:
+    """The launch counts since the last reset_counts()."""
+    from qrw_tpu_torch.ops import qp_pallas, qp_phase
+    caps = dict(qp_phase.CAP_LAUNCHES)
+    cone = dict(qp_pallas.CONE_LAUNCHES_BY_N)
+    dense = qp_pallas.DENSE_KERNEL_LAUNCHES
+    return Counts(sum(caps.values()), caps, dense + sum(cone.values()),
+                  dense, cone, qp_pallas.NS_KERNEL_LAUNCHES,
+                  qp_pallas.NS_GENERAL_KERNEL_LAUNCHES)
+
+
+def run_hetero_path(cfg, device):
+    """Phase 5b: the heterogeneous fleet at full width through the CLI's
+    functions (run_hetero: a warm-up run, then a timed run from the same
+    initial carry), then one crippled cycle and two recovery cycles from
+    its final carry, so that the rescue fires at n = 144. Returns (K1
+    launches of the CLI run, K2 launches of the crippled run, ticks/s)."""
+    from qrw_tpu_torch.runtime.main import (hetero_summary,
+                                            rescue_capacity, run_hetero)
+    from qrw_tpu_torch.sim import fleet as fl
+
+    cap = rescue_capacity(None, HETERO_B)
+    reset_counts()
+    carry, cyc, meta, wall, first = run_hetero(
+        cfg, HETERO_B, TILE, 0, device, HETERO_CYCLES, cap)
+    n = read_counts()
+    k1, k1_caps, k2, k2_dense, k2_n = n.k1, n.k1_caps, n.k2, n.k2_dense, \
+        n.k2_cone
+    sm = hetero_summary(carry, cyc, meta, TILE)
+    n_ticks = HETERO_CYCLES * cfg.k_mpc
+    ticks_s = HETERO_B * n_ticks / wall
+    conv_c = cyc.converged.float().mean(dim=1).cpu().numpy()
+    log(f"hetero fleet B={HETERO_B} tile={TILE} rescue cap {cap} (real "
+        f"estimator, bounding uncalibrated): {HETERO_CYCLES} cycles = "
+        f"{n_ticks} ticks in {wall:.3f} s (first run {first:.3f} s): "
+        f"{ticks_s:.1f} ticks/s aggregate; MPC conv {sm['conv']:.4f} (per "
+        f"cycle {np.round(conv_c, 4).tolist()}), lanes rescued "
+        f"{sm['rescued']}; upright {sm['upright']:.4f} per gait "
+        f"{sm['per_gait']} per terrain {sm['per_terrain']}; latched "
+        f"{sm['latched']}; launches over both runs: K1 {k1} by cap "
+        f"{k1_caps}, K2 {k2} (dense {k2_dense}, cone by n {k2_n})")
+    assert sm["finite"] and bool(torch.isfinite(carry.sim_states.q).all()), \
+        "non-finite state"
+    assert sm["latched"] == 0, "security latch"
+    assert sm["upright"] == 1.0, f"upright {sm['upright']}"
+    assert sm["conv"] >= HETERO_CONV_BAR, f"MPC conv {sm['conv']:.4f}"
+    assert k1 == 2 * HETERO_CYCLES and k1_caps == {48: k1}, (k1, k1_caps)
+    assert k2_dense == 0 and set(k2_n) <= {144}, (k2_dense, k2_n)
+
+    # the rescue fired deterministically: one crippled cycle
+    ctl, _, ps, terrain, meta = fl.make_hetero_fleet(
+        cfg, HETERO_B, tile=TILE, seed=0, device=device)
+    sched = fl.hetero_v_ref_schedule(cfg, meta.velID,
+                                     (HETERO_CYCLES + 3) * cfg.k_mpc,
+                                     device=device)[n_ticks:]
+    kw = dict(tile=TILE, rescue_cap=cap, stop_at_eps=True, terrain=terrain,
+              phase_offsets=meta.phase_offsets,
+              phase_periods=meta.phase_periods, perfect_estimator=False,
+              with_logs=False)
+    T = cfg.k_mpc
+    reset_counts()
+    carry, _, c2 = fl.fleet_rollout(ctl, carry, 1, ps, n_iters=1,
+                                    v_ref_schedule=sched[:T], **kw)
+    torch.cuda.synchronize()
+    n = read_counts()
+    k1c, k2c, k2c_dense, k2c_n = n.k1, n.k2, n.k2_dense, n.k2_cone
+    carry, _, c3 = fl.fleet_rollout(ctl, carry, 2, ps, n_iters=300,
+                                    v_ref_schedule=sched[T:], **kw)
+    sm3 = hetero_summary(carry, c3, meta, TILE)
+    log(f"hetero rescue firing: 1 crippled cycle (1 phase iteration): "
+        f"{int(c2.rescued[0])} lanes rescued, {int(c2.converged.sum())} "
+        f"converged; K1 {k1c}, K2 {k2c} launches (dense {k2c_dense}, cone "
+        f"by n {k2c_n}); 2 recovery cycles: conv {sm3['conv']:.4f}, upright "
+        f"{sm3['upright']:.4f}, latched {sm3['latched']}")
+    assert int(c2.rescued[0]) == cap, f"{int(c2.rescued[0])} lanes rescued"
+    assert k2c >= 1 and k2c_dense == 0 and k2c_n == {144: k2c}, k2c_n
+    assert sm3["finite"] and sm3["latched"] == 0, "recovery failed"
+    return k1, k2c, ticks_s
+
+
+def check_hetero_slice(cfg, device):
+    """Phase 6b: the heterogeneous slice with the kernel against it with
+    the plain solver: B = 384 (3 tiles, one a gait), 2 cycles, from one
+    carry, on the fleet's terrain with the real estimator."""
+    from qrw_tpu_torch.ops import qp_phase
+    from qrw_tpu_torch.sim import fleet as fl
+
+    ctl, carry, ps, terrain, meta = fl.make_hetero_fleet(
+        cfg, HETERO_SLICE_B, tile=TILE, seed=1, device=device)
+    sched = fl.hetero_v_ref_schedule(cfg, meta.velID,
+                                     SLICE_CYCLES * cfg.k_mpc, device=device)
+    kw = dict(tile=TILE, n_iters=300, stop_at_eps=True, terrain=terrain,
+              phase_offsets=meta.phase_offsets,
+              phase_periods=meta.phase_periods, perfect_estimator=False,
+              v_ref_schedule=sched)
+    _, lk, ck = fl.fleet_rollout(ctl, carry, SLICE_CYCLES, ps, **kw)
+    kernel_solve = qp_phase.solve
+    qp_phase.solve = qp_phase.solve_plain       # the plain path, on purpose
+    try:
+        _, lp, cp = fl.fleet_rollout(ctl, carry, SLICE_CYCLES, ps, **kw)
+    finally:
+        qp_phase.solve = kernel_solve
+    compare_slices("hetero slice", HETERO_SLICE_B, lk, ck, lp, cp)
 
 
 # ----------------------------------------------------------------------
@@ -1215,20 +1499,15 @@ def run_entry_point(cfg, device, argv=PROFILE_ARGV):
     launches, its JSON dict)."""
     from qrw_tpu_torch.core import mpc as tm
     from qrw_tpu_torch.eval import kernel_profile
-    from qrw_tpu_torch.ops import qp_pallas
     tiles = argv[argv.index("--tiles") + 1:]
     torch.cuda.synchronize()
-    qp_pallas.KERNEL_LAUNCHES = 0
-    qp_pallas.DENSE_KERNEL_LAUNCHES = 0
-    qp_pallas.NS_KERNEL_LAUNCHES = 0
-    qp_pallas.NS_GENERAL_KERNEL_LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = kernel_profile.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k2, k3 = qp_pallas.KERNEL_LAUNCHES, qp_pallas.NS_KERNEL_LAUNCHES
-    k2_dense = qp_pallas.DENSE_KERNEL_LAUNCHES
-    k3_general = qp_pallas.NS_GENERAL_KERNEL_LAUNCHES
+    n = read_counts()
+    k2, k3, k2_dense, k3_general = n.k2, n.k3, n.k2_dense, n.k3_general
     log(f"entry point python -m qrw_tpu_torch.eval.kernel_profile "
         f"{' '.join(argv)}: {wall:.2f} s; K2 launches {k2} ({k2_dense} of "
         f"the dense variant), K3 launches {k3} ({k3_general} of the "
@@ -1402,13 +1681,26 @@ def main() -> int:
 
     err, k_ms, p_ms, k_bound, k1_geo = check_kernel(cfg, ps, device,
                                                     B_KERNEL, TILE)
+    # the heterogeneous fleet's union phase set (make_hetero_fleet's)
+    ups = ml.union_phase_fsteps(cfg, [ml.gait_phase_fsteps(cfg, g)
+                                      for g in HETERO_GAITS])
+    ps48 = ml.build_phase_data(cfg, ups, device=device)
+    err48s, k48s_ms, p48s_ms, k48s_bound, k48s_geo = check_kernel(
+        cfg, ps48, device, B_KERNEL, TILE, phase_fs=ups)
+    # ... and at the heterogeneous fleet's own B: 32 tiles, 15 resident
+    err48, k48_ms, p48_ms, k48_bound, k48_geo = check_kernel(
+        cfg, ps48, device, HETERO_B, TILE, phase_fs=ups)
     err2, k2_ms, p2_ms, k2_bound, k2_variants = check_rescue_kernel(cfg,
                                                                     device)
+    err144, k144_ms, p144_ms, k144_bound, k144_variants = \
+        check_rescue_kernel(cfg, device, gait="walk")
     check_cone_bits(cfg, device)
     check_cone_nonfinite(cfg, device)
     k2_launches = run_rescue_path(cfg, device)
     launches, _ = run_main_path(cfg, device)
     check_slice(cfg, ps, device)
+    k1_hetero, k2_hetero, _ = run_hetero_path(cfg, device)
+    check_hetero_slice(cfg, device)
     err3, k3, k3_ns0 = check_ns_kernel(cfg, device)
     err4, k4_ms, p4_ms, k4_bound, k4_ref, k4_variants = check_full_kernel(
         cfg, device)
@@ -1423,6 +1715,20 @@ def main() -> int:
         "launches": launches, "max_abs_err": err,
         "ms": k_ms[0], "plain_ms": p_ms[0], "bound_ms": k_bound[0],
         "bound_by": k_bound[1], "library_ms": None, **k1_geo}, {
+        "name": "qp_phase_cap48", "route": "cuda",
+        "source": "qrw_tpu_torch/csrc/qp_phase.cu",
+        "replaces": "qrw_tpu/ops/qp_phase.py:233",
+        "launches": k1_hetero, "max_abs_err": max(err48, err48s),
+        "B": HETERO_B, "ms": k48_ms[0], "plain_ms": p48_ms[0],
+        "bound_ms": k48_bound[0], "bound_by": k48_bound[1],
+        "library_ms": None, "share": k48_bound[0] / k48_ms[0], **k48_geo,
+        f"B{B_KERNEL}": {"ms": k48s_ms[0], "plain_ms": p48s_ms[0],
+                         "bound_ms": k48s_bound[0],
+                         "share": k48s_bound[0] / k48s_ms[0],
+                         "clusters_resident":
+                             k48s_geo["clusters_resident"],
+                         "sms": k48s_geo["sms"],
+                         "excused": k48s_geo["excused"]}}, {
         "name": "qp_admm", "route": "cuda",
         "source": "qrw_tpu_torch/csrc/qp_admm.cu",
         "replaces": "qrw_tpu/ops/qp_pallas.py:55",
@@ -1430,6 +1736,14 @@ def main() -> int:
         "ms": k2_ms[0], "plain_ms": p2_ms[0], "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1], "library_ms": None,
         "variants": {f"R{R}": v for R, v in k2_variants.items()}}, {
+        "name": "qp_admm_n144", "route": "cuda",
+        "source": "qrw_tpu_torch/csrc/qp_admm.cu",
+        "replaces": "qrw_tpu/ops/qp_pallas.py:55",
+        "launches": k2_hetero, "max_abs_err": err144,
+        "ms": k144_ms[0], "plain_ms": p144_ms[0],
+        "bound_ms": k144_bound[0], "bound_by": k144_bound[1],
+        "library_ms": None, "share": k144_bound[0] / k144_ms[0],
+        "variants": {f"R{R}": v for R, v in k144_variants.items()}}, {
         "name": "qp_admm_full", "route": "cuda",
         "source": "qrw_tpu_torch/csrc/qp_admm.cu",
         "replaces": "qrw_tpu/ops/qp_pallas.py:55",

@@ -30,7 +30,7 @@ def _registry():
                                         foot_trajectory, footstep, gait,
                                         kalman, mpc, mpc_lane, wbc)
         from qrw_tpu_torch.ops import qp, qp_pallas, qp_phase
-        from qrw_tpu_torch.sim import fleet, physics
+        from qrw_tpu_torch.sim import fleet, physics, terrain
         classes = [
             qp_phase.PhaseQPData, qp_phase.PhaseQPResult,
             qp_pallas.PallasQPResult, qp.QPSolution, mpc.MPCWarmState,
@@ -43,7 +43,7 @@ def _registry():
             estimator.EstimatorOutput, estimator.DeviceData,
             kalman.KF18State, mpc.MPCState, wbc.WBCState, wbc.WBCResult,
             physics.SimState, fleet.FleetCarry, fleet.FleetLog,
-            fleet.FleetCycleLog]
+            fleet.FleetCycleLog, terrain.Terrain, terrain.FleetTerrain]
         _REGISTRY = {c.__name__: c for c in classes}
     return _REGISTRY
 

@@ -128,6 +128,74 @@ def gait_phase_fsteps(cfg: Config, kind: str = "trot") -> np.ndarray:
     return np.stack([_support_to_fsteps(cfg, sups[p]) for p in range(P)])
 
 
+def transition_phase_fsteps(cfg: Config, kind_a: str,
+                            kind_b: str) -> np.ndarray:
+    """(P, N_gait, 12) mixed support windows of a switch from gait A to
+    gait B: t rolls after the switch from A-phase p, rows 0..N-t-1 still
+    hold A and rows N-t..N-1 hold B's prefix. Every (p, t in 1..N-1)
+    window, deduplicated. These classes have no cyclic phase arithmetic."""
+    from qrw_tpu_torch.core import gait as gait_mod
+    N = cfg.n_steps
+    pat_a = np.asarray(gait_mod._pattern(cfg, kind_a))
+    pat_b = np.asarray(gait_mod._pattern(cfg, kind_b))
+    na = int(np.sum(np.any(pat_a != 0, axis=1)))
+    nb = int(np.sum(np.any(pat_b != 0, axis=1)))
+    seen = set()
+    sups = []
+    for p in range(na):
+        for t in range(1, N):
+            win = np.zeros((N, 4), bool)
+            for i in range(N):
+                if i < N - t:
+                    win[i] = pat_a[(i + t - p) % na] != 0
+                else:
+                    win[i] = pat_b[(i - (N - t)) % nb] != 0
+            key = win.tobytes()
+            if key not in seen:
+                seen.add(key)
+                sups.append(win)
+    return np.stack([_support_to_fsteps(cfg, s) for s in sups])
+
+
+def calibrate_phase_fsteps(cfg: Config, phase_fs: np.ndarray,
+                           fsteps_captured: np.ndarray) -> np.ndarray:
+    """Re-center each phase class's nominal footholds on the mean
+    captured foothold of the cycles whose support matches the class
+    (the shared metric then fits the operating distribution); classes
+    with no matching captured cycle keep their nominal values."""
+    N = cfg.n_steps
+    phase_fs = np.asarray(phase_fs)
+    P = phase_fs.shape[0]
+    fsteps_captured = np.asarray(fsteps_captured)
+    sups = (phase_fs[:, :N, 0::3] != 0).reshape(P, -1)
+    cap_sup = (fsteps_captured[:, :N, 0::3] != 0) \
+        .reshape(fsteps_captured.shape[0], -1)
+    out = np.array(phase_fs, np.float32, copy=True)
+    for p in range(P):
+        sel = (cap_sup == sups[p]).all(axis=1)
+        if sel.any():
+            avg = fsteps_captured[sel].mean(axis=0)
+            m = np.zeros(phase_fs.shape[1:], bool)
+            m[:N] = np.repeat(sups[p].reshape(N, 4), 3, axis=1)
+            out[p] = np.where(m, avg, 0.0).astype(np.float32)
+    return out
+
+
+def union_phase_fsteps(cfg: Config, sets) -> np.ndarray:
+    """Concatenate phase-class sets, deduplicated by support, into one
+    (P, N_gait, 12) array for a shared PhaseStructure."""
+    N = cfg.n_steps
+    seen = set()
+    out = []
+    for s in sets:
+        for fs in np.asarray(s):
+            key = (fs[:N, 0::3] != 0).tobytes()
+            if key not in seen:
+                seen.add(key)
+                out.append(fs)
+    return np.stack(out)
+
+
 def trot_phase_fsteps(cfg: Config, foothold=None) -> np.ndarray:
     """(P=N, N_gait, 12) nominal trot footsteps, one per gait offset."""
     N = cfg.n_steps

@@ -555,11 +555,12 @@ int launch_cone(const Params& p, float mu, cudaStream_t stream,
 
 // kind 1: [I (x) C; I] (ConeStructure); kind 2: I (x) C
 // (ReducedConeStructure). Returns true where a cone kernel is compiled
-// for (kind, n, m).
+// for (kind, n, m): both kinds at n = 96 and 192; the reduced cone also
+// at n = 144 (cap 48, the rescue of a fleet whose phase set holds walk:
+// 576 threads a block, 36 K^-1 registers a thread).
 bool cone_shape(int kind, int n, int m) {
-  if (n != 96 && n != 192) return false;
-  if (kind == 1) return m == 8 * n / 3;
-  if (kind == 2) return m == 5 * n / 3;
+  if (kind == 1) return (n == 96 || n == 192) && m == 8 * n / 3;
+  if (kind == 2) return (n == 96 || n == 144 || n == 192) && m == 5 * n / 3;
   return false;
 }
 
@@ -630,6 +631,8 @@ int qrw_qp_admm_cone_solve(int kind, float mu, const float* kinv,
     if (full) return kref ? QRW_CONE(96, true, true) : QRW_CONE(96, true, false);
     return kref ? QRW_CONE(96, false, true) : QRW_CONE(96, false, false);
   }
+  if (n == 144)
+    return kref ? QRW_CONE(144, false, true) : QRW_CONE(144, false, false);
   if (full) return kref ? QRW_CONE(192, true, true) : QRW_CONE(192, true, false);
   return kref ? QRW_CONE(192, false, true) : QRW_CONE(192, false, false);
 #undef QRW_CONE

@@ -60,11 +60,6 @@ namespace {
 
 constexpr float X_CLIP = 100.0f;
 constexpr float Y_CLIP = 1.0e4f;
-constexpr int CAP = 32;          // stance slots: 2N at N = 16
-constexpr int NV = 3 * CAP;      // variables
-constexpr int MR = 5 * CAP;      // cone rows
-constexpr int KS = NV + 1;       // padded row stride of Kbar^-1
-constexpr int GS = CAP + 1;      // padded row stride of G1, G2
 constexpr int CLUSTER = 8;       // blocks a tile (portable cluster size)
 constexpr int NRED = 6;          // pri, dua, |A x|, |z|, |H x|, |A'y|
 
@@ -75,18 +70,29 @@ struct Params {
   int B, tile, n_iters, check_every, stop_at_eps, n_phases;
 };
 
-// Problems a thread (PPT), threads a slot (PH) and threads a block (NT)
-// for PB problems a block.
-template <int PB>
+// The kernel is compiled for two caps (stance slots): 32 = 2N at N = 16
+// (trot, pacing, bounding) and 48 = 3N (walk's 3-stance rows, and any
+// phase set that holds walk). Problems a thread (PPT), threads a slot
+// (PH) and threads a block (NT = CAP PH: 8, 12 or 6 warps) for PB
+// problems a block, and the shape constants of the cap.
+template <int CAP_, int PB>
 struct Geo {
+  static constexpr int CAP = CAP_;
+  static constexpr int NV = 3 * CAP;     // variables
+  static constexpr int MR = 5 * CAP;     // cone rows
+  static constexpr int KS = NV + 1;      // padded row stride of Kbar^-1
+  static constexpr int GS = CAP + 1;     // padded row stride of G1, G2
   static constexpr int PPT = PB > 8 ? PB / 8 : 1;
   static constexpr int PH = PB / PPT;
   static constexpr int NT = CAP * PH;
+  static_assert(NT % 32 == 0, "whole warps a block");
+  static_assert(32 % PH == 0, "a warp holds whole slots");
 };
 
-__host__ __device__ constexpr size_t smem_floats(int pb, int nt) {
-  return (size_t)NV * KS + 2 * CAP * GS + 2 * MR +
-         (size_t)pb * (NV + 3 * MR + NV + 9 * CAP + 6 * CAP + NV) +
+__host__ __device__ constexpr size_t smem_floats(int cap, int pb, int nt) {
+  const size_t c = cap, n = 3 * c, m = 5 * c;   // variables, cone rows
+  return n * (n + 1) + 2 * c * (c + 1) + 2 * m +
+         pb * (n + 3 * m + n + 9 * c + 6 * c + n) +
          (size_t)(nt / 32) * NRED * pb + (size_t)NRED * pb + 2 * pb;
 }
 
@@ -112,10 +118,9 @@ __device__ __forceinline__ void cone5_t(const float w[5], float mu,
 // thread's value j of its problem k. out[j * PB + p] gets the result.
 // Values are >= 0 (absolute values): fmaxf from 0 ignores NaN in any
 // order, as the sequential loop of one thread did.
-template <int PB, int NV_>
-__device__ void slot_max(float (&v)[Geo<PB>::PPT][NV_], float* red,
-                         float* out) {
-  constexpr int PPT = Geo<PB>::PPT, PH = Geo<PB>::PH, NT = Geo<PB>::NT;
+template <class G, int PB, int NV_>
+__device__ void slot_max(float (&v)[G::PPT][NV_], float* red, float* out) {
+  constexpr int PPT = G::PPT, PH = G::PH, NT = G::NT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < PPT; ++k)
@@ -141,8 +146,8 @@ __device__ void slot_max(float (&v)[Geo<PB>::PPT][NV_], float* red,
   __syncthreads();
 }
 
-template <int PB>
-__global__ void __launch_bounds__(Geo<PB>::NT)
+template <int CAP, int PB>
+__global__ void __launch_bounds__(Geo<CAP, PB>::NT)
 qp_phase_kernel(Params p, const float* __restrict__ Qg,
                 const float* __restrict__ blst,
                 const float* __restrict__ X0, const float* __restrict__ Y0,
@@ -154,7 +159,9 @@ qp_phase_kernel(Params p, const float* __restrict__ Qg,
                 const float* __restrict__ hi_g, float* __restrict__ Xo,
                 float* __restrict__ Yo, float* __restrict__ Zo,
                 float* __restrict__ res) {
-  constexpr int PPT = Geo<PB>::PPT, PH = Geo<PB>::PH, NT = Geo<PB>::NT;
+  using G = Geo<CAP, PB>;
+  constexpr int PPT = G::PPT, PH = G::PH, NT = G::NT;
+  constexpr int NV = G::NV, MR = G::MR, KS = G::KS, GS = G::GS;
   extern __shared__ float smem[];
   float* K = smem;                     // NV x KS, Kbar^-1 of the phase
   float* G1 = K + NV * KS;             // CAP x GS
@@ -221,7 +228,7 @@ qp_phase_kernel(Params p, const float* __restrict__ Qg,
 #pragma unroll
     for (int i = 0; i < 3; ++i) nq[k][0] = fmaxf(nq[k][0], fabsf(AT(Q, 3 * s + i, k)));
   }
-  slot_max<PB, 1>(nq, RED, NQ);
+  slot_max<G, PB, 1>(nq, RED, NQ);
   for (int i = tid; i < PB; i += NT) NQ[i] *= p.ci;
 
   // psf of the slot: k < 3 the constant force rows (dt/m x_s), k >= 3 the
@@ -305,7 +312,7 @@ qp_phase_kernel(Params p, const float* __restrict__ Qg,
         v[k][5] = fmaxf(v[k][5], fabsf(aty[i]));
       }
     }
-    slot_max<PB, NRED>(v, RED, RMAX);
+    slot_max<G, PB, NRED>(v, RED, RMAX);
   };
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -437,30 +444,27 @@ qp_phase_kernel(Params p, const float* __restrict__ Qg,
 #undef SLAB
 }
 
-// Problems a block for a tile, or 0 where no kernel takes the tile.
+// Problems a block for a tile, or 0 where no block shape takes it. The
+// wrapper (ops/qp_phase.py::launch_geometry) refuses a block whose shared
+// memory exceeds what a block can have, so no kernel is compiled for one
+// (cap 48 at 32 problems): the dispatch below returns -1 there.
 int block_problems(int cap, int tile) {
-  if (cap != CAP || tile % CLUSTER) return 0;
+  if ((cap != 32 && cap != 48) || tile % CLUSTER) return 0;
   const int pb = tile / CLUSTER;
   return (pb == 4 || pb == 8 || pb == 16 || pb == 32) ? pb : 0;
 }
 
-int block_threads(int pb) {
-  switch (pb) {
-    case 4: return Geo<4>::NT;
-    case 8: return Geo<8>::NT;
-    case 16: return Geo<16>::NT;
-    case 32: return Geo<32>::NT;
-  }
-  return 0;
+int block_threads(int cap, int pb) {
+  return cap * (pb > 8 ? 8 : pb);
 }
 
-template <int PB>
+template <int CAP, int PB>
 cudaLaunchConfig_t launch_config(int B, int tile, size_t smem,
                                  cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((B / tile) * CLUSTER, 1, 1);
-  cfg.blockDim = dim3(Geo<PB>::NT, 1, 1);
+  cfg.blockDim = dim3(Geo<CAP, PB>::NT, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -474,33 +478,37 @@ cudaLaunchConfig_t launch_config(int B, int tile, size_t smem,
 
 // Sets the kernel's shared-memory attribute; with `clusters` non-null,
 // stores how many clusters of the launch can be resident at once.
-template <int PB>
+template <int CAP, int PB>
 int prepare(int B, int tile, cudaStream_t stream, int* clusters) {
-  const size_t smem = sizeof(float) * smem_floats(PB, Geo<PB>::NT);
+  const size_t smem = sizeof(float) * smem_floats(CAP, PB, Geo<CAP, PB>::NT);
   cudaError_t e = cudaFuncSetAttribute(
-      qp_phase_kernel<PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      qp_phase_kernel<CAP, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   if (clusters) {
     cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = launch_config<PB>(B, tile, smem, stream, &attr);
-    e = cudaOccupancyMaxActiveClusters(clusters, qp_phase_kernel<PB>, &cfg);
+    cudaLaunchConfig_t cfg =
+        launch_config<CAP, PB>(B, tile, smem, stream, &attr);
+    e = cudaOccupancyMaxActiveClusters(clusters, qp_phase_kernel<CAP, PB>,
+                                       &cfg);
   }
   return (int)e;
 }
 
-template <int PB>
+template <int CAP, int PB>
 int launch(const Params& p, cudaStream_t stream, const float* q,
            const float* blst, const float* x0, const float* y0,
            const float* kinv, const float* g1, const float* g2,
            const int* phases_of, const float* lo, const float* hi, float* x,
            float* y, float* z, float* res) {
-  const int e = prepare<PB>(p.B, p.tile, stream, nullptr);
+  const int e = prepare<CAP, PB>(p.B, p.tile, stream, nullptr);
   if (e != 0) return e;
-  const size_t smem = sizeof(float) * smem_floats(PB, Geo<PB>::NT);
+  const size_t smem = sizeof(float) * smem_floats(CAP, PB, Geo<CAP, PB>::NT);
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config<PB>(p.B, p.tile, smem, stream, &attr);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, qp_phase_kernel<PB>, p, q, blst,
+  cudaLaunchConfig_t cfg =
+      launch_config<CAP, PB>(p.B, p.tile, smem, stream, &attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, qp_phase_kernel<CAP, PB>, p, q,
+                                       blst,
                                        x0, y0, kinv, g1, g2, phases_of, lo,
                                        hi, x, y, z, res);
   if (err != cudaSuccess) return (int)err;
@@ -513,22 +521,15 @@ extern "C" {
 
 // Launch geometry at (cap, tile): out[0] problems a block, out[1] the
 // cluster size, out[2] threads a block, out[3] dynamic shared memory a
-// block in bytes. Returns 0, or -1 where no kernel takes the tile.
+// block in bytes. Returns 0, or -1 where no block shape takes the tile.
 int qrw_qp_phase_geometry(int cap, int tile, int* out) {
   const int pb = block_problems(cap, tile);
   if (pb == 0) return -1;
   out[0] = pb;
   out[1] = CLUSTER;
-  out[2] = block_threads(pb);
-  out[3] = (int)(sizeof(float) * smem_floats(pb, block_threads(pb)));
+  out[2] = block_threads(cap, pb);
+  out[3] = (int)(sizeof(float) * smem_floats(cap, pb, block_threads(cap, pb)));
   return 0;
-}
-
-int qrw_qp_phase_max_smem_bytes() {
-  int dev = 0, v = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return v;
 }
 
 // Clusters of a B-problem launch at (cap, tile) that the card can hold
@@ -536,11 +537,17 @@ int qrw_qp_phase_max_smem_bytes() {
 // CUDA error code, or -1 where no kernel takes the tile.
 int qrw_qp_phase_max_active_clusters(int cap, int tile, int B,
                                      int* clusters) {
-  switch (block_problems(cap, tile)) {
-    case 4: return prepare<4>(B, tile, 0, clusters);
-    case 8: return prepare<8>(B, tile, 0, clusters);
-    case 16: return prepare<16>(B, tile, 0, clusters);
-    case 32: return prepare<32>(B, tile, 0, clusters);
+  const int pb = block_problems(cap, tile);
+  if (cap == 32) switch (pb) {
+    case 4: return prepare<32, 4>(B, tile, 0, clusters);
+    case 8: return prepare<32, 8>(B, tile, 0, clusters);
+    case 16: return prepare<32, 16>(B, tile, 0, clusters);
+    case 32: return prepare<32, 32>(B, tile, 0, clusters);
+  }
+  if (cap == 48) switch (pb) {
+    case 4: return prepare<48, 4>(B, tile, 0, clusters);
+    case 8: return prepare<48, 8>(B, tile, 0, clusters);
+    case 16: return prepare<48, 16>(B, tile, 0, clusters);
   }
   return -1;
 }
@@ -566,14 +573,20 @@ int qrw_qp_phase_solve(const float* q, const float* blst, const float* x0,
   p.n_phases = n_phases;
   if (B % tile) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-#define QRW_LAUNCH(PB)                                                        \
-  launch<PB>(p, s, q, blst, x0, y0, kinv, g1, g2, phases_of, lo, hi, x, y, z, \
-             res)
-  switch (block_problems(cap, tile)) {
-    case 4: return QRW_LAUNCH(4);
-    case 8: return QRW_LAUNCH(8);
-    case 16: return QRW_LAUNCH(16);
-    case 32: return QRW_LAUNCH(32);
+#define QRW_LAUNCH(CAP, PB)                                                   \
+  launch<CAP, PB>(p, s, q, blst, x0, y0, kinv, g1, g2, phases_of, lo, hi, x,  \
+                  y, z, res)
+  const int pb = block_problems(cap, tile);
+  if (cap == 32) switch (pb) {
+    case 4: return QRW_LAUNCH(32, 4);
+    case 8: return QRW_LAUNCH(32, 8);
+    case 16: return QRW_LAUNCH(32, 16);
+    case 32: return QRW_LAUNCH(32, 32);
+  }
+  if (cap == 48) switch (pb) {
+    case 4: return QRW_LAUNCH(48, 4);
+    case 8: return QRW_LAUNCH(48, 8);
+    case 16: return QRW_LAUNCH(48, 16);
   }
 #undef QRW_LAUNCH
   return -1;

@@ -39,13 +39,13 @@ import torch
 
 from qrw_tpu_torch.ops import qp
 
-# Launches of the CUDA kernels on CUDA tensors: K2 (one per ADMM round,
-# either variant), of them the dense variant's alone (cone=None), and K3
-# (one per Newton-Schulz refinement in `_factor`, either variant), of them
-# the general variant's alone. chip_smoke.py resets them before a run of
-# the main path and reads them after.
-KERNEL_LAUNCHES = 0
+# Launches of the CUDA kernels on CUDA tensors: K2 (one per ADMM round)
+# by variant, the dense variant's (cone=None) in all and the cone
+# variant's by n, and K3 (one per Newton-Schulz refinement in `_factor`,
+# either variant), of them the general variant's alone. chip_smoke.py
+# resets them before a run of the main path and reads them after.
 DENSE_KERNEL_LAUNCHES = 0
+CONE_LAUNCHES_BY_N = {}
 NS_KERNEL_LAUNCHES = 0
 NS_GENERAL_KERNEL_LAUNCHES = 0
 
@@ -313,8 +313,10 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-# n of the cone variant's compiled kernels (csrc/qp_admm.cu)
-CONE_KERNEL_N = (96, 192)
+# n of the cone variant's compiled kernels by cone kind
+# (csrc/qp_admm.cu): both kinds at 96 and 192, the reduced cone also at
+# 144 (the rescue of a cap-48 fleet)
+CONE_KERNEL_SHAPES = {CONE_FULL: (96, 192), CONE_REDUCED: (96, 144, 192)}
 
 
 def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
@@ -326,7 +328,7 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
     block's shared memory beside K^-1 (n = 192, m = 512) it reads A and a
     contiguous A' from device memory. Returns (x, y, z, pri, dua, n1,
     n2)."""
-    global KERNEL_LAUNCHES, DENSE_KERNEL_LAUNCHES
+    global DENSE_KERNEL_LAUNCHES
     B, n = q.shape
     m = A.shape[0]
     dev = q.device
@@ -344,10 +346,10 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
     if K is not None and K.data_ptr() % 16:
         raise ValueError("K: not 16-byte aligned (the kernel reads float4)")
     if cone is not None and ((cone.n, cone.m) != (n, m)
-                             or n not in CONE_KERNEL_N):
+                             or n not in CONE_KERNEL_SHAPES[cone.kind]):
         raise ValueError(f"qp_admm cone kernel: no kernel for n={n}, m={m} "
                          f"and cone {cone}; compiled for n in "
-                         f"{CONE_KERNEL_N}")
+                         f"{CONE_KERNEL_SHAPES} (cone kind: n)")
     lib = _cfunc()
     have = lib.qrw_qp_admm_max_smem_bytes()
     if cone is not None:
@@ -381,8 +383,10 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
             *vecs[1:], B, n, m, int(n_iters), float(alpha), stream)
     if err != 0:
         raise RuntimeError(f"qp_admm kernel launch failed: CUDA error {err}")
-    KERNEL_LAUNCHES += 1
-    DENSE_KERNEL_LAUNCHES += cone is None
+    if cone is None:
+        DENSE_KERNEL_LAUNCHES += 1
+    else:
+        CONE_LAUNCHES_BY_N[n] = CONE_LAUNCHES_BY_N.get(n, 0) + 1
     return x, y, z, res[0], res[1], res[2], res[3]
 
 

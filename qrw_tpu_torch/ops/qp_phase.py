@@ -35,9 +35,9 @@ X_CLIP = 100.0          # primal safeguard box [N]
 Y_CLIP = 1.0e4          # dual safeguard box
 
 # Counts launches of the CUDA kernel (one per `solve` call on CUDA
-# tensors). chip_smoke.py resets it before the fleet run and reads it
-# after.
-KERNEL_LAUNCHES = 0
+# tensors) by cap. chip_smoke.py resets it before a fleet run and reads
+# it after.
+CAP_LAUNCHES = {}
 
 
 class PhaseQPData(NamedTuple):
@@ -301,8 +301,6 @@ def _cfunc():
         fn.restype = _I
         lib.qrw_qp_phase_geometry.argtypes = [_I, _I, _P]
         lib.qrw_qp_phase_geometry.restype = _I
-        lib.qrw_qp_phase_max_smem_bytes.argtypes = []
-        lib.qrw_qp_phase_max_smem_bytes.restype = _I
         lib.qrw_qp_phase_max_active_clusters.argtypes = [_I, _I, _I, _P]
         lib.qrw_qp_phase_max_active_clusters.restype = _I
     return lib
@@ -310,10 +308,17 @@ def _cfunc():
 
 # The kernel spreads a tile over a cluster of CLUSTER thread blocks, each
 # holding tile // CLUSTER problems; it is compiled for these block sizes
-# and for the fleet's cap of 32 stance slots (csrc/qp_phase.cu).
+# and for two caps of stance slots (csrc/qp_phase.cu): 32 (trot, pacing,
+# bounding) and 48 (walk's 3-stance rows, and any phase set holding walk).
 CLUSTER = 8
-KERNEL_CAP = 32
+KERNEL_CAP = (32, 48)
 BLOCK_PROBLEMS = (4, 8, 16, 32)
+# A block's dynamic shared memory can be at most 227 KiB on the H100
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin). This is the one place the
+# limit is kept: csrc/qp_phase.cu compiles no block that exceeds it, and
+# on a card that offers less the kernel's shared-memory attribute is
+# refused and the launch raises.
+MAX_SMEM_BYTES = 232448
 
 
 class LaunchGeometry(NamedTuple):
@@ -327,12 +332,14 @@ class LaunchGeometry(NamedTuple):
 def launch_geometry(cap: int, tile: int, B: int) -> LaunchGeometry:
     """K1's launch geometry for B problems of `cap` stance slots in tiles
     of `tile`: CLUSTER blocks a tile, tile // CLUSTER problems a block,
-    one thread per (slot, problem) up to 8 problems, 256 threads a block
-    above. Raises ValueError on a shape the kernel does not take
-    (solve_plain takes any)."""
-    if cap != KERNEL_CAP:
+    one thread per (slot, problem) up to 8 problems, cap * 8 threads a
+    block above. Raises ValueError on a shape the kernel does not take
+    (solve_plain takes any): a cap other than 32 or 48, a tile whose
+    block is not 4-32 problems, or a block whose shared memory exceeds
+    MAX_SMEM_BYTES (cap 48 at tile 256)."""
+    if cap not in KERNEL_CAP:
         raise ValueError(f"qp_phase kernel: cap {cap}, the kernel is "
-                         f"compiled for cap {KERNEL_CAP}")
+                         f"compiled for caps {KERNEL_CAP}")
     if tile % CLUSTER or tile // CLUSTER not in BLOCK_PROBLEMS:
         raise ValueError(f"qp_phase kernel: tile {tile} is not one of "
                          f"{[CLUSTER * p for p in BLOCK_PROBLEMS]}")
@@ -346,14 +353,18 @@ def launch_geometry(cap: int, tile: int, B: int) -> LaunchGeometry:
     floats = (n * (n + 1) + 2 * cap * (cap + 1) + 2 * m
               + pb * (n + 3 * m + n + 9 * cap + 6 * cap + n)
               + (threads // 32) * 6 * pb + 6 * pb + 2 * pb)
+    if 4 * floats > MAX_SMEM_BYTES:
+        raise ValueError(f"qp_phase kernel: cap {cap} at tile {tile} needs "
+                         f"{4 * floats} B of shared memory a block, more "
+                         f"than the {MAX_SMEM_BYTES} B a block can have")
     return LaunchGeometry(pb, CLUSTER, threads, (B // tile) * CLUSTER,
                           4 * floats)
 
 
-_CLUSTERS_CHECKED = set()   # (tile, B) whose cluster fits the card
+_CLUSTERS_CHECKED = set()   # (cap, tile, B) whose cluster fits the card
 
 
-def max_active_clusters(tile: int, B: int, cap: int = KERNEL_CAP) -> int:
+def max_active_clusters(tile: int, B: int, cap: int = 32) -> int:
     """Clusters of a B-problem launch that the card can hold at once
     (cudaOccupancyMaxActiveClusters)."""
     lib = _cfunc()
@@ -385,7 +396,6 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
     """Launch the kernel on the current stream: a cluster of CLUSTER
     blocks per tile (`launch_geometry`). Returns (x, y, z, res (5, B))
     with res rows pri, dua, n1, n2, it_conv."""
-    global KERNEL_LAUNCHES
     n, B = q.shape
     cap = n // 3
     m = 5 * cap
@@ -411,17 +421,12 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
                                 geo.threads, geo.smem_bytes)):
         raise RuntimeError(f"qp_phase kernel: the compiled launch geometry "
                            f"{tuple(built)} is not {geo}")
-    have = lib.qrw_qp_phase_max_smem_bytes()
-    if geo.smem_bytes > have:
-        raise ValueError(f"qp_phase kernel needs {geo.smem_bytes} B of "
-                         f"shared memory per block at tile={tile}; the card "
-                         f"offers {have}")
-    if (tile, B) not in _CLUSTERS_CHECKED:
+    if (cap, tile, B) not in _CLUSTERS_CHECKED:
         if max_active_clusters(tile, B, cap) < 1:
             raise RuntimeError(f"qp_phase kernel: the card cannot hold one "
                                f"cluster of {geo.cluster} blocks of "
                                f"{geo.smem_bytes} B")
-        _CLUSTERS_CHECKED.add((tile, B))
+        _CLUSTERS_CHECKED.add((cap, tile, B))
     x = torch.empty((n, B), dtype=f32, device=dev)
     y = torch.empty((m, B), dtype=f32, device=dev)
     z = torch.empty((m, B), dtype=f32, device=dev)
@@ -444,7 +449,7 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
     if err != 0:
         raise RuntimeError(f"qp_phase kernel launch failed: CUDA error "
                            f"{err}")
-    KERNEL_LAUNCHES += 1
+    CAP_LAUNCHES[cap] = CAP_LAUNCHES.get(cap, 0) + 1
     return x, y, z, res
 
 

@@ -1,9 +1,9 @@
 """Simulator state of the articulated rigid-body simulator.
 
 Partial port of qrw_tpu/sim/physics.py: `SimState` and `init_sim_state`
-on flat ground. The fleet steps its robots lane-major
-(sim/physics_lane.step_lane); the per-robot `step`, terrain and the
-envID=1 projectiles are not ported yet.
+(on the flat plane or settled onto a sim/terrain height field). The
+fleet steps its robots lane-major (sim/physics_lane.step_lane); the
+per-robot `step` and the envID=1 projectiles are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,18 +28,23 @@ class SimState(NamedTuple):
 def init_sim_state(cfg: Config, q_init=None, height: Optional[float] = None,
                    terrain=None, dtype=torch.float32,
                    device="cpu") -> SimState:
-    """Initial simulator state standing on the flat ground."""
-    from qrw_tpu_torch.models.solo12 import H_INIT
-    if terrain is not None:
-        raise NotImplementedError("terrain is not ported yet (flat only)")
+    """Initial simulator state. On a terrain the base is raised by the
+    highest ground under the feet's neutral (shoulder) positions, so the
+    lowest foot just touches: the reference's startup settling."""
+    from qrw_tpu_torch.models.solo12 import H_INIT, make_solo12
     if cfg.envID == 1:
         raise NotImplementedError("envID=1 projectiles are not ported yet")
     kw = dict(dtype=dtype, device=device)
     if q_init is None:
         q_init = torch.tensor(cfg.q_init, **kw)
-    h = H_INIT if height is None else height
-    q = torch.cat([torch.tensor([0.0, 0.0, h, 0.0, 0.0, 0.0, 1.0], **kw),
-                   q_init.to(**kw)])
+    h = torch.tensor(H_INIT if height is None else height, **kw)
+    if terrain is not None:
+        from qrw_tpu_torch.sim.terrain import height_at
+        sh = torch.as_tensor(make_solo12().shoulders[0:2].T, **kw)
+        h = h + torch.max(height_at(terrain, sh)).to(dtype)
+    zero = torch.zeros((), **kw)
+    q = torch.cat([torch.stack([zero, zero, h, zero, zero, zero,
+                                torch.ones((), **kw)]), q_init.to(**kw)])
     return SimState(
         q=q, v=torch.zeros(18, **kw), anchors=torch.zeros((4, 2), **kw),
         active=torch.zeros(4, dtype=torch.bool, device=device),

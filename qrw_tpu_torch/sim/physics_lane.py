@@ -5,8 +5,10 @@ substeps) for a whole fleet on the rbd_lane kernels, with the same
 compliant contact model (normal spring-damper, tangential anchor spring
 clamped to the friction cone, anchor sliding), the same on-board control
 law tau = P (q_des - q) + D (v_des - v) + tau_ff and the same
-measurement synthesis. Flat ground only: `terrain` other than None
-raises NotImplementedError.
+measurement synthesis. `terrain` (a sim/terrain.Terrain shared by the
+fleet, or a FleetTerrain, one per robot) sets the ground height under
+each foot; None is the flat plane. The envID=1 projectiles are not
+ported and raise NotImplementedError.
 
 The boundary is batch-major (leading batch axis), as in the JAX module.
 """
@@ -21,6 +23,7 @@ from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.estimator import DeviceData
 from qrw_tpu_torch.ops import rbd_lane as rl
 from qrw_tpu_torch.sim.physics import SimState
+from qrw_tpu_torch.sim.terrain import height_at
 
 
 def _quat_mul_lane(q, r):
@@ -50,9 +53,8 @@ def step_lane(cfg: Config, lane: rl.LaneModel, state: SimState, P, D,
               q_des, v_des, tau_ff, f_ext=None, terrain=None
               ) -> Tuple[SimState, DeviceData]:
     """One WBC tick for the whole fleet. State leaves (B, ...),
-    P/D/q_des/v_des/tau_ff (B, 12), f_ext (B, 3) world-frame base force."""
-    if terrain is not None:
-        raise NotImplementedError("terrain is not ported yet (flat only)")
+    P/D/q_des/v_des/tau_ff (B, 12), f_ext (B, 3) world-frame base force,
+    terrain None (flat), a Terrain or a FleetTerrain."""
     if state.proj is not None:
         raise NotImplementedError("projectiles are not supported here")
     dtype = state.q.dtype
@@ -95,8 +97,12 @@ def step_lane(cfg: Config, lane: rl.LaneModel, state: SimState, P, D,
         px, py, pz = kin.pos
         vx, vy, vz = kin.vel
 
-        # compliant contact on the flat ground (height 0)
-        pen = 0.0 - pz
+        # compliant contact (sim/physics._contact_forces)
+        if terrain is not None:
+            ground_h = height_at(terrain, torch.stack([px, py], dim=-1))
+        else:
+            ground_h = 0.0
+        pen = ground_h - pz
         in_ground = pen > 0.0
         fn = torch.clamp(ks * pen - kd * vz, min=0.0)
         fn = torch.where(in_ground, fn, 0.0)

@@ -10,6 +10,10 @@ exits per BATCH under stop_at_eps (qrw_tpu/ops/qp_phase.py:442-447)
 while the port exits per tile, so only the full-budget solve has one
 semantics on both sides.
 
+The same two cycles run again with the complementary-filter estimator
+in the loop (perfect_estimator=False, the CLI's default), from the same
+converted carry: the `_real_estimator` cases.
+
 Tolerance: float32 on both sides, same equations, different op order.
 The closed loop (ADMM, WBC QP, stiff contact) keeps round-off from
 growing over 20 ticks: measured 3e-8 m on base positions, 4e-4 N on the
@@ -38,13 +42,13 @@ B = 4
 N_CYCLES = 2
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _run(perfect_estimator):
     jps = jml.build_phase_data(CFG, jml.trot_phase_fsteps(CFG))
     jctl, jcarry = jfl.make_fleet(CFG, B, jps, tile=1, seed=0)
     jout = jax.jit(lambda c: jfl.fleet_rollout(
         jctl, c, N_CYCLES, jps, tile=1, n_iters=300, rescue_cap=0,
-        use_ref=True, interpret=True, stop_at_eps=False))(jcarry)
+        use_ref=True, interpret=True, stop_at_eps=False,
+        perfect_estimator=perfect_estimator))(jcarry)
     jout = jax.tree.map(np.asarray, jout)
 
     tps = tml.build_phase_data(CFG, tml.trot_phase_fsteps(CFG),
@@ -52,8 +56,19 @@ def runs():
     tcarry = convert.to_torch(jax.tree.map(np.asarray, jcarry))
     tctl = tfl.make_controller(CFG)
     tout = tfl.fleet_rollout(tctl, tcarry, N_CYCLES, tps, tile=1,
-                             n_iters=300, rescue_cap=0, stop_at_eps=False)
+                             n_iters=300, rescue_cap=0, stop_at_eps=False,
+                             perfect_estimator=perfect_estimator)
     return tout, jout
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return _run(True)
+
+
+@pytest.fixture(scope="module")
+def runs_real():
+    return _run(False)
 
 
 def _scale_tol(w, rel):
@@ -65,6 +80,18 @@ def _scale_tol(w, rel):
                                        ("f_mpc", 1e-3), ("tau_ff", 1e-3),
                                        ("error", 0)])
 def test_fleet_log_parity(runs, field, rel):
+    _check_log(runs, field, rel)
+
+
+@pytest.mark.parametrize("field,rel", [("base_pos", 1e-5),
+                                       ("base_quat", 1e-5),
+                                       ("f_mpc", 1e-3), ("tau_ff", 1e-3),
+                                       ("error", 0)])
+def test_fleet_log_parity_real_estimator(runs_real, field, rel):
+    _check_log(runs_real, field, rel)
+
+
+def _check_log(runs, field, rel):
     (_, tlog, _), (_, jlog, _) = runs
     w = getattr(jlog, field)
     g = getattr(tlog, field).numpy()
@@ -77,6 +104,14 @@ def test_fleet_log_parity(runs, field, rel):
 
 
 def test_fleet_cycle_log_parity(runs):
+    _check_cycle_log(runs)
+
+
+def test_fleet_cycle_log_parity_real_estimator(runs_real):
+    _check_cycle_log(runs_real)
+
+
+def _check_cycle_log(runs):
     (_, _, tcyc), (_, _, jcyc) = runs
     np.testing.assert_array_equal(tcyc.converged.numpy(), jcyc.converged)
     np.testing.assert_array_equal(tcyc.iters.numpy(), jcyc.iters)
@@ -87,6 +122,18 @@ def test_fleet_cycle_log_parity(runs):
 
 
 def test_fleet_final_carry_parity(runs):
+    _check_carry(runs)
+
+
+def test_fleet_final_carry_parity_real_estimator(runs, runs_real):
+    """The estimator's own state is part of the carry; the real one
+    drives a different loop from the perfect one."""
+    _check_carry(runs_real)
+    assert not np.array_equal(runs_real[1][0].sim_states.q,
+                              runs[1][0].sim_states.q)
+
+
+def _check_carry(runs):
     (tcarry, _, _), (jcarry, _, _) = runs
     got = convert.to_numpy(tcarry, like=jcarry)
     flat_g = jax.tree_util.tree_leaves(got)

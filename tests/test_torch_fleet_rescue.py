@@ -20,6 +20,33 @@ Measured: 7e-8 m on base positions, 9e-4 N on the consumed plan forces
 adapted rho (the carry's rrho) is set by primal residuals at the float32
 round-off floor (tests/test_torch_qp_pallas.py) and is held within a
 factor 2; every other integer or boolean is equal.
+
+One leaf has its own tolerance: the WBC box-QP's dual `.wbc.qp_y` after
+the second rescued cycle (scale 0.81) is held to 5e-3, 2.5x qrw_tpu's
+own float32 spread on it. The numbers come from
+tests/torch_rescue_rounding.py (CPU, one thread, x64 on as in these
+tests):
+  * `spread 32`: 32 runs, each from the fleet's carry with the
+    simulator's q and v moved by about one float32 ulp (run 0 unmoved),
+    the same carry for both packages. Over the 496 pairs of runs qrw_tpu's
+    qp_y differs from itself by up to 2.0e-3 and the port's by up to
+    2.3e-3; the plan forces by 1.1e-3 N and 1.2e-3 N (of 23 N). The two
+    packages are equally sensitive: the rescue's K (condition ~1e7) turns
+    a 1e-6 difference of the state into a 1e-3 N one of the plan forces,
+    and the WBC's warm-started ADMM dual follows them. Port against
+    qrw_tpu from the same carry: qp_y 1.0e-3 apart in run 0 (this
+    test's case), 9.7e-4 in the median run, 2.6e-3 at most and 4.1e-5
+    at least, so no systematic difference above 4.1e-5 hides in the
+    gap. With x64 off, qrw_tpu's own float32 run moves so that run 0's
+    gap is 1.8e-3.
+  * `f64`: from the same float64 carry (every stage but the MPC, which
+    is float32 in both packages by design, in float64) the packages'
+    qp_y differ by 2.0e-4; each package's float32 against its float64
+    run moves qp_y by 1.2e-4 (qrw_tpu) and 9.3e-4 (the port), two single
+    draws of the spread above.
+The gap is float32 rounding carried through the rescue, not a formula
+difference, and it lies over the 1e-3 bar every other leaf keeps (of
+its scale) in 16 of the 32 runs.
 """
 
 import jax
@@ -136,6 +163,9 @@ def test_rescue_fleet_carry_parity(runs, cycle):
         elif path.endswith(".rrho"):
             ratio = g / w
             assert (ratio > 0.5).all() and (ratio < 2.0).all(), ratio
+        elif path.endswith(".wbc.qp_y"):
+            np.testing.assert_allclose(g, w, rtol=0, atol=5e-3,
+                                       err_msg=path)
         else:
             np.testing.assert_allclose(g, w, rtol=0,
                                        atol=_scale_tol(w, 1e-3),

@@ -4,7 +4,8 @@ Importing any qrw_tpu_torch module must import neither jax nor any
 module of the JAX package qrw_tpu (the port runs on a machine without
 them); its copies of qrw_tpu's configuration and robot model must equal
 the originals. Branches the port does not cover yet (Kalman estimator,
-terrain, DDP MPC, other CLI modes) raise instead of taking another path,
+the envID=1 projectiles, DDP MPC, other CLI modes) raise instead of
+taking another path,
 and a fleet asked for on CUDA raises on a host without a card instead of
 continuing on the CPU."""
 
@@ -72,14 +73,18 @@ def test_unported_branches_raise(branch):
         elif branch == "ddp":
             tc.init_state(tc.make_controller(CFG.replace(type_MPC=False)))
         elif branch == "terrain":
-            physics.init_sim_state(CFG, terrain=object())
+            # terrain is ported; the stairs course's projectiles are not
+            from qrw_tpu_torch.sim.terrain import make_terrain
+            cfg = CFG.replace(envID=1)
+            physics.init_sim_state(cfg, terrain=make_terrain(cfg, device="cpu"))
         else:
             tc.compute_post(ctl, None, None, 0, None, None, None, None)
 
 
 def test_cli_unported_modes_exit():
     from qrw_tpu_torch.runtime import main
-    assert main.main(["--hetero", "8"]) == 2
+    assert main.main(["--bumpy"]) == 2
+    assert main.main(["--fleet", "128", "--envID", "1"]) == 2
     assert main.main([]) == 2
 
 
@@ -93,7 +98,8 @@ def test_cli_rescue_defaults_to_the_jax_capacity(monkeypatch):
     class Stop(Exception):
         pass
 
-    def fake_run_fleet(cfg, batch, tile, seed, device, n_cycles, rescue):
+    def fake_run_fleet(cfg, batch, tile, seed, device, n_cycles, rescue,
+                       perfect=False):
         seen.append((batch, rescue))
         raise Stop      # before anything is built or run
 
@@ -105,6 +111,57 @@ def test_cli_rescue_defaults_to_the_jax_capacity(monkeypatch):
         with pytest.raises(Stop):
             main.main(argv)
         assert seen.pop() == want, argv
+
+
+def test_cli_estimator_config_and_hetero(monkeypatch, tmp_path):
+    """--fleet runs the complementary-filter estimator unless --perfect
+    is given, as the JAX entry point does; --config reaches load_config;
+    --hetero rounds B down to whole 128-robot tiles, at least three (one
+    a gait), with the rescue default of max(4, B // 32)."""
+    from qrw_tpu_torch.runtime import main
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_run_fleet(cfg, batch, tile, seed, device, n_cycles, rescue,
+                       perfect=False):
+        seen.append((cfg.velID, cfg.N_SIMULATION, perfect))
+        raise Stop
+
+    def fake_run_hetero(cfg, batch, tile, seed, device, n_cycles, rescue):
+        seen.append((batch, n_cycles, rescue))
+        raise Stop
+
+    monkeypatch.setattr(main, "run_fleet", fake_run_fleet)
+    monkeypatch.setattr(main, "run_hetero", fake_run_hetero)
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text("robot:\n  velID: 4\n  N_SIMULATION: 50\n")
+    cases = [(["--fleet", "128"], (CFG.velID, CFG.N_SIMULATION, False)),
+             (["--fleet", "128", "--perfect"],
+              (CFG.velID, CFG.N_SIMULATION, True)),
+             (["--hetero", "4096", "--ticks", "100"], (4096, 10, 128)),
+             (["--hetero", "100"], (384, CFG.N_SIMULATION // 10, 12)),
+             (["--hetero", "1000", "--rescue", "3"], (896, 300, 3))]
+    from qrw_tpu_torch import config as tcfg
+    if tcfg.yaml is not None:
+        cases.append((["--fleet", "128", "--config", str(cfg_path)],
+                      (4, 50, False)))
+    for argv, want in cases:
+        with pytest.raises(Stop):
+            main.main(argv)
+        assert seen.pop() == want, argv
+
+
+def test_stairs_asset_copy_equals_jax_package():
+    """qrw_tpu_torch/sim/bauzil_stairs_hf.npz is a byte-equal copy of
+    qrw_tpu/sim/bauzil_stairs_hf.npz."""
+    with open(os.path.join(ROOT, "qrw_tpu", "sim",
+                           "bauzil_stairs_hf.npz"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(ROOT, "qrw_tpu_torch", "sim",
+                           "bauzil_stairs_hf.npz"), "rb") as f:
+        assert f.read() == want
 
 
 def test_kernel_dispatch_has_no_fallback():

@@ -99,9 +99,15 @@ def test_step_lane_parity(rollout, part):
 
 
 def test_step_lane_rejects_terrain():
+    """step_lane takes None, a Terrain or a FleetTerrain (held against
+    qrw_tpu in tests/test_torch_terrain.py): any other terrain raises,
+    and so do the envID=1 projectiles, which are not ported."""
     ss = convert.to_torch(jax.tree.map(np.asarray, _state0(
         np.random.default_rng(0))), dtype=torch.float64)
     z = torch.zeros((B, 12), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="not a terrain"):
         tpl.step_lane(CFG, trl.solo12_lane(), ss, z, z, z, z, z,
                       terrain=object())
+    with pytest.raises(NotImplementedError):
+        tpl.step_lane(CFG, trl.solo12_lane(), ss._replace(proj=()), z, z,
+                      z, z, z)

@@ -7,9 +7,12 @@ that A is that cone matrix. Here: the description reconstructs the JAX
 package's matrices exactly, a plain emulation of the structured
 products (each output's nonzero terms from 0 in increasing index order,
 as the kernel's FMAs take them) equals the dense products, and a
-perturbed A is refused. K1 (csrc/qp_phase.cu) spreads a tile over a
-cluster of thread blocks; its launch-geometry helper refuses the tiles
-the kernel does not take, which the plain solver still accepts.
+perturbed A is refused; the cone variant's new shape, the reduced cone
+at n = 144 (cap 48), takes one round of the plain version against the
+Pallas kernel in interpret mode. K1 (csrc/qp_phase.cu) spreads a tile
+over a cluster of thread blocks; its launch-geometry helper refuses the
+tiles the kernel does not take (at cap 48: tile 256, whose block would
+not fit the shared memory), which the plain solver still accepts.
 
 Tolerances. Float64 with integer data and a dyadic mu: every product and
 partial sum is exact, so the structured and dense products are equal
@@ -191,7 +194,9 @@ def test_cone_dispatch_has_no_fallback():
 @pytest.mark.parametrize("cap,tile,B", [(32, 16, 1024), (32, 48, 960),
                                         (32, 96, 960), (32, 512, 1024),
                                         (32, 1024, 1024), (24, 128, 1024),
-                                        (32, 128, 1000), (32, 128, 64)])
+                                        (32, 128, 1000), (32, 128, 64),
+                                        (48, 256, 4096), (64, 128, 1024),
+                                        (48, 16, 1024)])
 def test_k1_launch_geometry_refuses(cap, tile, B):
     """Tiles that K1's cluster launch cannot take raise ValueError."""
     with pytest.raises(ValueError, match="qp_phase kernel"):
@@ -212,6 +217,96 @@ def test_k1_launch_geometry(tile):
     assert geo.smem_bytes <= 227 * 1024
     if tile == 128:
         assert geo.grid == 64
+
+
+@pytest.mark.parametrize("tile,smem", [(32, 134912), (64, 166720),
+                                       (128, 229184)])
+def test_k1_launch_geometry_cap48(tile, smem):
+    """At cap 48 (n = 144, m = 240) a block holds the phase's 144 x 145
+    Kbar^-1 beside its problems: tiles 32-128 fit the 227 KiB a block can
+    have (tile 128 with ~3 kB to spare), tile 256 does not and raises
+    with the reason. B = 4096 at tile 128 is 32 tiles, 256 blocks."""
+    B = 4096
+    geo = tqph.launch_geometry(48, tile, B)
+    assert geo.smem_bytes == smem <= tqph.MAX_SMEM_BYTES == 227 * 1024
+    assert geo.problems_per_block * geo.cluster == tile
+    assert geo.threads == 48 * min(geo.problems_per_block, 8)
+    assert geo.threads % 32 == 0
+    assert geo.grid == (B // tile) * 8
+    with pytest.raises(ValueError, match="354112 B of shared memory"):
+        tqph.launch_geometry(48, 256, B)
+
+
+def test_cone_kernel_n144_is_the_reduced_cone_only():
+    """n = 144 is compiled for the reduced cone (the rescue of a cap-48
+    fleet); a full cone of that n raises before anything is launched."""
+    assert 144 in tqpp.CONE_KERNEL_SHAPES[tqpp.CONE_REDUCED]
+    cone = tqp.ConeStructure(12, CFG.mu)
+    desc = tqpp.cone_description(cone)
+    assert desc.n == 144
+    B, n, m = 2, desc.n, desc.m
+    A = torch.as_tensor(tqpp.cone_matrix_of(desc), dtype=torch.float32)
+    v, w = torch.zeros((B, n)), torch.zeros((B, m))
+    M = torch.zeros((B, n, n))
+    with pytest.raises(ValueError, match="no kernel for n=144"):
+        tqpp._launch(M, M, A, v, w, w, w, v, v, w, 1.6, 50, cone=desc)
+
+
+@pytest.mark.parametrize("k_ref", [False, True])
+def test_kernel_round_parity_n144(k_ref):
+    """K2 at the rescue shape of a cap-48 fleet (reduced cone, n = 144,
+    m = 240): one 50-iteration round of the plain version against the
+    Pallas kernel (qrw_tpu's _run_kernel, interpret mode) on the same
+    float32 inputs, K^-1 included, and with K_ref its two refinements a
+    step. Problems from two walk phases and one trot phase, built by
+    qrw_tpu's build_qp_reduced at cap 48. Tolerances as
+    tests/test_torch_qp_pallas.py holds the n = 96 round: pri to 4 ulps
+    of the ~25 N scale, the rest to 1e-4 of their scale plus 1e-6."""
+    import jax
+    import jax.numpy as jnp
+    from qrw_tpu.core import mpc_lane as jml
+    from qrw_tpu.ops import qp_pallas as jqpp
+    cap, Bq = 48, 3
+    rng = np.random.default_rng(11)
+    walk = jml.gait_phase_fsteps(CFG, "walk")
+    trot = jml.gait_phase_fsteps(CFG, "trot")
+    fs = np.stack([walk[0], walk[5], trot[2]]).astype(np.float32)
+    xr = np.zeros((Bq, 12, N + 1), np.float32)
+    xr[:, 2] = CFG.h_ref
+    xr[:, :, 0] += rng.normal(scale=0.02, size=(Bq, 12))
+    xr[:, 6, 1:] = rng.uniform(0.0, 0.4, size=(Bq, 1))
+    H, q, *_ = jax.vmap(lambda x, f: jmpc.build_qp_reduced(
+        CFG, x, f, cap))(jnp.asarray(xr), jnp.asarray(fs))
+    H, q = np.array(H, np.float32), np.array(q, np.float32)
+    cone = jqp.ReducedConeStructure(cap, CFG.mu)
+    A = cone.matrix().astype(np.float32)
+    assert A.shape == (240, 144)
+    l = np.tile(np.array([-np.inf] * 4 + [-CFG.fz_max], np.float32),
+                (Bq, cap))
+    u = np.zeros_like(l)
+    rho = np.full((Bq, 5 * cap), 0.1, np.float32)
+    sig = np.full((Bq, 3 * cap), 1e-6, np.float32)
+    K = jqpp._build_K(jnp.asarray(H), jnp.asarray(A), jnp.asarray(rho),
+                      jnp.asarray(sig), cone)
+    Kinv = np.array(jqpp._chol_inv(K), np.float32)
+    K = np.array(K, np.float32) if k_ref else None
+    x0 = rng.normal(scale=5.0, size=(Bq, 3 * cap)).astype(np.float32)
+    y0 = rng.normal(scale=1e-3, size=(Bq, 5 * cap)).astype(np.float32)
+    args = (Kinv, H, A, q, l, u, rho, sig, x0, y0)
+    want = jqpp._run_kernel(*map(jnp.asarray, args), 1.6, 50, Bq, True,
+                            K=None if K is None else jnp.asarray(K))
+    got = tqpp._run_kernel(*map(torch.as_tensor, args), 1.6, 50,
+                           K=None if K is None else torch.as_tensor(K),
+                           cone=tqp.ReducedConeStructure(cap, CFG.mu))
+    ulp4 = 4 * np.spacing(np.float32(32.0))
+    for name, g, w in zip(["x", "y", "z", "pri", "dua", "n1", "n2"], got,
+                          want):
+        w = np.asarray(w)
+        tol = (ulp4 if name == "pri"
+               else 1e-4 * np.abs(w).max() + 1e-6)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=tol,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("tile", [16, 48])

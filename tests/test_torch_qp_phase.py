@@ -258,3 +258,168 @@ def test_solve_mpc_batch_phase_parity(jps, tps):
         np.testing.assert_allclose(_np(a), w, rtol=0,
                                    atol=1e-4 * max(1.0, np.abs(w).max()),
                                    err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def union_ps():
+    """The heterogeneous fleet's union phase set (trot, walk, bounding:
+    16 phases each, cap 48, n = 144, m = 240) in both packages."""
+    fs = np.concatenate([jml.gait_phase_fsteps(CFG, g)
+                         for g in ("trot", "walk", "bounding")])
+    return (jml.build_phase_data(CFG, fs),
+            tml.build_phase_data(CFG, fs, device="cpu"), fs)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("stop_at_eps", [False, True])
+def test_solve_plain_matches_pallas_cap48(union_ps, warm, stop_at_eps):
+    """K1 at cap 48: a phase-sorted batch of two walk phases and one trot
+    phase of the union set (a trot tile of a mixed fleet solves at the
+    set's cap too), two problems a tile, against the Pallas kernel in
+    interpret mode. Tolerances and their reasoning as at cap 32 (test
+    above): flags and iteration counts equal, x / y / z to 1e-4 of
+    their scale."""
+    jps, tps, fs = union_ps
+    assert tps.cap == jps.cap == 48
+    phases = [16, 21, 3]                       # walk, walk, trot
+    rng = np.random.default_rng(7)
+    per = 2
+    Bq = per * len(phases)
+    xrefs = np.zeros((12, N + 1, Bq), np.float32)
+    xrefs[2, :, :] = CFG.h_ref
+    xrefs[:, 0, :] += rng.normal(scale=0.02, size=(12, Bq)).astype(
+        np.float32)
+    xrefs[6, 1:, :] = rng.uniform(0, 0.4, Bq).astype(np.float32)
+    fsteps = np.repeat(fs[phases], per, axis=0).transpose(1, 2, 0)
+    phases_of = np.asarray(phases)
+    _, _, _, BlS, q, _ = tml.phase_problem(
+        CFG, torch.as_tensor(xrefs), torch.as_tensor(fsteps.copy()), tps,
+        phases_of, per)
+    q, BlS = _np(q), _np(BlS)
+    assert q.shape == (144, Bq)
+    kw = dict(n_iters=300, tile=per, stop_at_eps=stop_at_eps)
+    x0 = y0 = None
+    if warm:
+        cold = jqp.solve(jnp.asarray(q), jnp.asarray(BlS), jps.data,
+                         phases_of, interpret=True, **kw)
+        x0 = np.asarray(cold.x) * 0.9
+        y0 = np.asarray(cold.y) * 0.9
+    want = jqp.solve(jnp.asarray(q), jnp.asarray(BlS), jps.data, phases_of,
+                     x0=None if x0 is None else jnp.asarray(x0),
+                     y0=None if y0 is None else jnp.asarray(y0),
+                     interpret=True, **kw)
+    got = tqp.solve(torch.as_tensor(q), torch.as_tensor(BlS), tps.data,
+                    phases_of,
+                    x0=None if x0 is None else torch.as_tensor(x0),
+                    y0=None if y0 is None else torch.as_tensor(y0), **kw)
+    np.testing.assert_array_equal(_np(got.converged),
+                                  np.asarray(want.converged))
+    np.testing.assert_array_equal(_np(got.iters), np.asarray(want.iters))
+    assert np.asarray(want.converged).any()
+    for f in ("x", "y", "z"):
+        w = np.asarray(getattr(want, f))
+        np.testing.assert_allclose(_np(getattr(got, f)), w, rtol=0,
+                                   atol=1e-4 * max(1.0, np.abs(w).max()),
+                                   err_msg=f)
+
+
+# Lanes of the bench's speeds that the phase solver drives into its
+# safeguard box: chip_smoke.py compares K1 with its plain version on them
+# after this many iterations only (chip_smoke.EARLY_ITERS).
+EARLY_ITERS = 10
+
+
+@pytest.fixture(scope="module")
+def bench_speed_batch(union_ps):
+    """Two walk tiles of the union set, 128 problems each, at the bench's
+    speeds (vx up to 1 m/s, bench.py::phase_batch): 13 of the 256 do not
+    converge in 300 iterations, 7 of those are driven into the safeguard
+    box, and one of those (lane 222) is chaotic. Returns the port's
+    (q, BlS) and phases, and the Pallas kernel's results (interpret mode)
+    after 300 and EARLY_ITERS iterations."""
+    jps, tps, fs = union_ps
+    phases, per = np.asarray([21, 28]), 128
+    rng = np.random.default_rng(0)
+    Bq = per * len(phases)
+    xrefs = np.zeros((12, N + 1, Bq), np.float32)
+    xrefs[2, :, :] = CFG.h_ref
+    xrefs[:, 0, :] += rng.normal(scale=0.02, size=(12, Bq)).astype(
+        np.float32)
+    xrefs[6, 1:, :] = rng.uniform(0, 1.0, Bq).astype(np.float32)
+    fsteps = np.repeat(fs[phases], per, axis=0).transpose(1, 2, 0)
+    _, _, _, BlS, q, _ = tml.phase_problem(
+        CFG, torch.as_tensor(xrefs), torch.as_tensor(fsteps.copy()), tps,
+        phases, per)
+    want = {n: jax.tree.map(np.asarray, jqp.solve(
+        jnp.asarray(_np(q)), jnp.asarray(_np(BlS)), jps.data, phases,
+        n_iters=n, tile=per, stop_at_eps=False, interpret=True))
+        for n in (300, EARLY_ITERS)}
+    return q, BlS, phases, per, want
+
+
+def test_diverging_lanes_are_chaotic(union_ps, bench_speed_batch):
+    """Why chip_smoke.py excuses K1's lanes that neither path converged
+    from the 300-iteration comparison and holds them after EARLY_ITERS
+    iterations instead. The plain version against itself, q changed by
+    1e-7 of itself: after 300 iterations every converged lane stays
+    within 1e-4 of the scale (measured 7.9e-5 N of a 1e-2 N limit), and
+    the lanes that leave it are unconverged lanes in the box (measured:
+    lane 222, by 29.9 N). After EARLY_ITERS iterations every lane stays
+    within 1e-4 of the scale (measured 8.1e-4 N of 1e-2 N on x, 1.4e-5 of
+    1.7e-4 on y)."""
+    _, tps, _ = union_ps
+    q, BlS, phases, per, _ = bench_speed_batch
+    a = tqp.solve_plain(q, BlS, tps.data, phases, tile=per)
+    b = tqp.solve_plain(q * (1 + 1e-7), BlS, tps.data, phases, tile=per)
+    conv = _np(a.converged)
+    in_box = _np(a.x.abs().amax(dim=0)) >= tqp.X_CLIP * (1 - 1e-6)
+    assert int((~conv).sum()) == 13 and int((~conv & in_box).sum()) == 7
+    for f in ("x", "y", "z"):
+        w = _np(getattr(a, f))
+        d = np.abs(_np(getattr(b, f)) - w).max(axis=0)
+        lim = 1e-4 * max(1.0, np.abs(w).max())
+        assert d[conv].max() <= lim, f
+        assert (~conv & in_box)[d > lim].all(), f
+    dx = np.abs(_np(b.x) - _np(a.x)).max(axis=0)
+    assert dx.max() > 1.0, "no chaotic lane"
+    ea = tqp.solve_plain(q, BlS, tps.data, phases, tile=per,
+                         n_iters=EARLY_ITERS)
+    eb = tqp.solve_plain(q * (1 + 1e-7), BlS, tps.data, phases, tile=per,
+                         n_iters=EARLY_ITERS)
+    for f in ("x", "y", "z"):
+        w = _np(getattr(ea, f))
+        np.testing.assert_allclose(_np(getattr(eb, f)), w, rtol=0,
+                                   atol=1e-4 * max(1.0, np.abs(w).max()),
+                                   err_msg=f)
+
+
+@pytest.mark.parametrize("n_iters", [300, EARLY_ITERS])
+def test_solve_plain_matches_pallas_cap48_bench_speeds(
+        union_ps, bench_speed_batch, n_iters):
+    """K1 at cap 48 against the Pallas kernel (interpret mode) at the
+    bench's speeds, where some lanes diverge: the Pallas kernel leaves
+    the same lanes unconverged (flags and iteration counts equal on every
+    lane). After 300 iterations x / y / z agree to 1e-4 of their scale on
+    every lane but chaotic ones, which are unconverged lanes in the box
+    (measured: lane 222, x +100 N in one package and -100 N in the
+    other); after EARLY_ITERS iterations on every lane (measured 1.5e-3 N
+    of a 1e-2 N limit on x, 2.0e-5 of 1.7e-4 on y)."""
+    _, tps, _ = union_ps
+    q, BlS, phases, per, want = bench_speed_batch
+    want = want[n_iters]
+    got = tqp.solve(q, BlS, tps.data, phases, n_iters=n_iters, tile=per,
+                    stop_at_eps=False)
+    conv = _np(got.converged)
+    np.testing.assert_array_equal(conv, want.converged)
+    np.testing.assert_array_equal(_np(got.iters), want.iters)
+    assert int((~conv).sum()) == (13 if n_iters == 300 else len(conv))
+    in_box = _np(got.x.abs().amax(dim=0)) >= tqp.X_CLIP * (1 - 1e-6)
+    for f in ("x", "y", "z"):
+        w = np.asarray(getattr(want, f))
+        d = np.abs(_np(getattr(got, f)) - w).max(axis=0)
+        lim = 1e-4 * max(1.0, np.abs(w).max())
+        if n_iters == EARLY_ITERS:
+            assert d.max() <= lim, (f, d.max(), lim)
+        else:
+            assert d[conv].max() <= lim, (f, d[conv].max(), lim)
+            assert (~conv & in_box)[d > lim].all(), f
