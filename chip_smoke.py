@@ -48,17 +48,33 @@ Phases (any failure ends the run with a non-zero exit):
    finite, no latch, every robot upright over the last 50 ticks, MPC
    convergence above the bar, and exactly one K1 launch per cycle
    (counts set to 0 just before, read after).
+   S1. The single-robot closed loop on the card: sim/fleet.
+   hetero_shakedown_capture(cfg, "bounding") at its full 1200 ticks
+   (bounding ramping to 0.4 m/s; the per-robot MPC at n = 192, m = 512
+   through the per-problem ADMM of ops/qp, the per-robot WBC and
+   physics). Wall time and ticks/s, MPC iterations and converged share
+   per solve, the WBC QP's iterations; upright, no latch, and no launch
+   of K1-K3 (the path has no kernel, as in the JAX package). Its
+   capture calibrates bounding's phase classes for 5b and 6b.
    5b. The heterogeneous fleet through runtime.main.run_hetero: B = 4096,
    tile 128, 10 cycles (twice, as in 5), rescue capacity 128, the real
-   estimator on flat, bumpy and stairs terrain. Every state finite, no
-   latch, every robot upright (z > 0.15 m), MPC conv >= 0.85, one K1
-   launch per cycle, all at cap 48, and no K2 launch but the cone
-   variant's at n = 144. Then one crippled cycle from its carry fires
-   the rescue (128 lanes, K2 at n = 144; counts set to 0 just before)
-   and two recovery cycles follow.
+   estimator on flat, bumpy and stairs terrain, bounding calibrated from
+   S1's capture. Every state finite, no latch, every robot upright
+   (z > 0.15 m), MPC conv >= 0.85 (printed per gait), one K1 launch per
+   cycle, all at cap 48, and no K2 launch but the cone variant's at
+   n = 144. Then one crippled cycle from its carry fires the rescue (128
+   lanes, K2 at n = 144; counts set to 0 just before) and two recovery
+   cycles follow.
 6. The whole slice with the kernel against the whole slice with the
    plain solver: B = 128, 2 cycles, from one carry. 6b: the same for
-   the heterogeneous slice at B = 384 (3 tiles, one a gait).
+   the heterogeneous slice at B = 384 (3 tiles, one a gait) on S1's
+   calibrated phase set.
+   S2. The CLI's default mode (runtime.main.run_single) at --batch 256
+   for 300 ticks with the default perturbations: robot-ticks/s, the
+   final height (mean, minimum), no latch, no kernel launch.
+   S3. One 20-tick rollout of 2 robots from one carry on the card and
+   on the CPU through the port, float32 and float64, every log leaf
+   compared with the CPU parity tests' tolerances.
 7. Kernel K3 against its plain version on full-size problems (n = 192)
    of the entry point's build_batch at B = 1024, both variants: the
    resident one (qrw_tpu_torch/csrc/qp_ns_refine_tc.cu, 3xTF32 on the
@@ -119,6 +135,9 @@ HETERO_GAITS = ("trot", "walk", "bounding")     # make_hetero_fleet's
 # MPC convergence bar of the heterogeneous fleet: the JAX package's own
 # test (tests/test_fleet_hetero.py:39) holds its mixed fleet above 0.85.
 HETERO_CONV_BAR = 0.85
+BATCH_B = 256                   # S2: the CLI's --batch at full width
+BATCH_TICKS = 300               # S2: 30 MPC cycles
+S3_TICKS = 20                   # S3: card against CPU
 RESCUE_R = (32, 128)            # K2 batch sizes: B // 32 at B = 1024, 4096
 RESCUE_SCHEDULE = [50, 150, 150, 100]
 RESCUE_CYCLES = (2, 1, 5)       # normal, crippled, recovery cycles
@@ -975,11 +994,12 @@ def read_counts() -> Counts:
                   qp_pallas.NS_GENERAL_KERNEL_LAUNCHES)
 
 
-def run_hetero_path(cfg, device):
+def run_hetero_path(cfg, device, calibration):
     """Phase 5b: the heterogeneous fleet at full width through the CLI's
     functions (run_hetero: a warm-up run, then a timed run from the same
-    initial carry), then one crippled cycle and two recovery cycles from
-    its final carry, so that the rescue fires at n = 144. Returns (K1
+    initial carry), with bounding calibrated from the shakedown capture
+    of S1, then one crippled cycle and two recovery cycles from its
+    final carry, so that the rescue fires at n = 144. Returns (K1
     launches of the CLI run, K2 launches of the crippled run, ticks/s)."""
     from qrw_tpu_torch.runtime.main import (hetero_summary,
                                             rescue_capacity, run_hetero)
@@ -988,7 +1008,8 @@ def run_hetero_path(cfg, device):
     cap = rescue_capacity(None, HETERO_B)
     reset_counts()
     carry, cyc, meta, wall, first = run_hetero(
-        cfg, HETERO_B, TILE, 0, device, HETERO_CYCLES, cap)
+        cfg, HETERO_B, TILE, 0, device, HETERO_CYCLES, cap,
+        calibration=calibration)
     n = read_counts()
     k1, k1_caps, k2, k2_dense, k2_n = n.k1, n.k1_caps, n.k2, n.k2_dense, \
         n.k2_cone
@@ -996,11 +1017,14 @@ def run_hetero_path(cfg, device):
     n_ticks = HETERO_CYCLES * cfg.k_mpc
     ticks_s = HETERO_B * n_ticks / wall
     conv_c = cyc.converged.float().mean(dim=1).cpu().numpy()
+    conv_g = {g: round(v, 4) for g, v in sm["conv_per_gait"].items()}
     log(f"hetero fleet B={HETERO_B} tile={TILE} rescue cap {cap} (real "
-        f"estimator, bounding uncalibrated): {HETERO_CYCLES} cycles = "
+        f"estimator, bounding calibrated from the shakedown capture): "
+        f"{HETERO_CYCLES} cycles = "
         f"{n_ticks} ticks in {wall:.3f} s (first run {first:.3f} s): "
         f"{ticks_s:.1f} ticks/s aggregate; MPC conv {sm['conv']:.4f} (per "
-        f"cycle {np.round(conv_c, 4).tolist()}), lanes rescued "
+        f"gait {conv_g}; per cycle {np.round(conv_c, 4).tolist()}), lanes "
+        f"rescued "
         f"{sm['rescued']}; upright {sm['upright']:.4f} per gait "
         f"{sm['per_gait']} per terrain {sm['per_terrain']}; latched "
         f"{sm['latched']}; launches over both runs: K1 {k1} by cap "
@@ -1015,7 +1039,8 @@ def run_hetero_path(cfg, device):
 
     # the rescue fired deterministically: one crippled cycle
     ctl, _, ps, terrain, meta = fl.make_hetero_fleet(
-        cfg, HETERO_B, tile=TILE, seed=0, device=device)
+        cfg, HETERO_B, tile=TILE, seed=0, device=device,
+        calibration=calibration)
     sched = fl.hetero_v_ref_schedule(cfg, meta.velID,
                                      (HETERO_CYCLES + 3) * cfg.k_mpc,
                                      device=device)[n_ticks:]
@@ -1044,15 +1069,17 @@ def run_hetero_path(cfg, device):
     return k1, k2c, ticks_s
 
 
-def check_hetero_slice(cfg, device):
+def check_hetero_slice(cfg, device, calibration):
     """Phase 6b: the heterogeneous slice with the kernel against it with
     the plain solver: B = 384 (3 tiles, one a gait), 2 cycles, from one
-    carry, on the fleet's terrain with the real estimator."""
+    carry, on the fleet's terrain with the real estimator and the phase
+    set calibrated from S1's capture."""
     from qrw_tpu_torch.ops import qp_phase
     from qrw_tpu_torch.sim import fleet as fl
 
     ctl, carry, ps, terrain, meta = fl.make_hetero_fleet(
-        cfg, HETERO_SLICE_B, tile=TILE, seed=1, device=device)
+        cfg, HETERO_SLICE_B, tile=TILE, seed=1, device=device,
+        calibration=calibration)
     sched = fl.hetero_v_ref_schedule(cfg, meta.velID,
                                      SLICE_CYCLES * cfg.k_mpc, device=device)
     kw = dict(tile=TILE, n_iters=300, stop_at_eps=True, terrain=terrain,
@@ -1067,6 +1094,173 @@ def check_hetero_slice(cfg, device):
     finally:
         qp_phase.solve = kernel_solve
     compare_slices("hetero slice", HETERO_SLICE_B, lk, ck, lp, cp)
+
+
+# ----------------------------------------------------------------------
+# The single-robot closed loop (no kernel: the per-problem ADMM)
+# ----------------------------------------------------------------------
+
+class SolveLog:
+    """Records, while active, the iteration counts and converged flags
+    of every per-robot MPC solve and WBC box-QP solve, and the logs of
+    every rollout, without reading the device."""
+
+    def __enter__(self):
+        from qrw_tpu_torch.core import mpc, wbc
+        from qrw_tpu_torch.sim import rollout
+        self.mpc, self.wbc, self.runs = [], [], []
+        self._orig = (mpc.solve_mpc, wbc.compute_wbc, rollout.rollout)
+
+        def solve_mpc(*a, **k):
+            r = self._orig[0](*a, **k)
+            self.mpc.append((r.iters, r.converged))
+            return r
+
+        def compute_wbc(*a, **k):
+            r = self._orig[1](*a, **k)
+            self.wbc.append(r.qp_iters)
+            return r
+
+        def run(*a, **k):
+            out = self._orig[2](*a, **k)
+            self.runs.append(out)
+            return out
+
+        mpc.solve_mpc, wbc.compute_wbc, rollout.rollout = (
+            solve_mpc, compute_wbc, run)
+        return self
+
+    def __exit__(self, *exc):
+        from qrw_tpu_torch.core import mpc, wbc
+        from qrw_tpu_torch.sim import rollout
+        mpc.solve_mpc, wbc.compute_wbc, rollout.rollout = self._orig
+
+    def summary(self):
+        """(MPC iterations (solves, B), converged (solves, B), WBC QP
+        iterations (ticks, B)) in numpy."""
+        it = torch.stack([i for i, _ in self.mpc]).cpu().numpy()
+        cv = torch.stack([c for _, c in self.mpc]).cpu().numpy()
+        return it, cv, torch.stack(self.wbc).cpu().numpy()
+
+
+def assert_no_kernel(label):
+    """The single-robot path launches none of K1-K3."""
+    n = read_counts()
+    log(f"{label}: kernel launches K1 {n.k1}, K2 {n.k2}, K3 {n.k3}")
+    assert n.k1 == n.k2 == n.k3 == 0, n
+
+
+def run_shakedown(cfg, device):
+    """S1: hetero_shakedown_capture(cfg, "bounding") on the card at its
+    full 1200 ticks: the single-robot closed loop, B = 1, at full width
+    (n = 192, m = 512 per MPC solve). Returns the capture, which
+    calibrates the heterogeneous fleet's bounding classes (phase 5b)."""
+    from qrw_tpu_torch.sim import fleet as fl
+
+    reset_counts()
+    with SolveLog() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        capture = fl.hetero_shakedown_capture(cfg, "bounding", device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    assert_no_kernel("S1 shakedown capture")
+    (_, logs), = rec.runs
+    it, cv, wit = rec.summary()
+    n_ticks = logs.base_pos.shape[0]
+    h = logs.base_pos[:, 2].cpu().numpy()
+    latched = bool(logs.error.any())
+    log(f"S1 shakedown capture (bounding to 0.4 m/s, B = 1): {n_ticks} "
+        f"ticks in {wall:.3f} s: {n_ticks / wall:.1f} ticks/s, "
+        f"{1e3 * wall / n_ticks:.2f} ms a tick; {it.shape[0]} MPC solves: "
+        f"iterations mean {it.mean():.1f} min {int(it.min())} max "
+        f"{int(it.max())}, converged share {cv.mean():.4f}; WBC QP "
+        f"iterations mean {wit.mean():.1f} max {int(wit.max())}; height "
+        f"min {h.min():.4f} final {h[-1]:.4f}; latched {latched}; capture "
+        f"{tuple(capture.shape)}")
+    assert capture.shape == (n_ticks // cfg.k_mpc, cfg.N_gait, 12)
+    assert np.isfinite(capture).all() and np.isfinite(h).all()
+    assert not latched, "security latch in the shakedown run"
+    assert (np.abs(h - cfg.h_ref) < 0.1).all(), "not upright"
+    assert cv.mean() >= CONV_BAR, f"MPC converged share {cv.mean():.4f}"
+    return capture, n_ticks / wall
+
+
+def run_batch_path(cfg, device):
+    """S2: the CLI's default mode at --batch 256 for 300 ticks, with the
+    default perturbations, through runtime.main's functions."""
+    from qrw_tpu_torch.runtime import main as cli
+
+    args = cli.build_argparser().parse_args(
+        ["--batch", str(BATCH_B), "--ticks", str(BATCH_TICKS)])
+    bcfg = cfg.replace(N_SIMULATION=BATCH_TICKS)
+    reset_counts()
+    with SolveLog() as rec:
+        _, logs, wall = cli.run_single(bcfg, args, device, torch.float32)
+        code = cli.single_summary(bcfg, args, logs, wall)
+    assert_no_kernel("S2 --batch")
+    it, cv, wit = rec.summary()
+    h = logs.base_pos[:, -1, 2].cpu().numpy()
+    n_lat = int(logs.error[:, -1].sum())
+    ticks_s = BATCH_B * BATCH_TICKS / wall
+    log(f"S2 --batch {BATCH_B} x {BATCH_TICKS} ticks in {wall:.3f} s: "
+        f"{ticks_s:.1f} robot-ticks/s ({BATCH_TICKS / wall:.1f} ticks/s); "
+        f"final height mean {h.mean():.4f} min {h.min():.4f}; latched "
+        f"{n_lat}; MPC iterations mean {it.mean():.1f}, converged share "
+        f"{cv.mean():.4f}; WBC QP iterations mean {wit.mean():.1f}")
+    assert code == 0 and n_lat == 0, "security latch"
+    assert np.isfinite(h).all() and (np.abs(h - cfg.h_ref) < 0.05).all()
+    assert cv.mean() >= CONV_BAR, f"MPC converged share {cv.mean():.4f}"
+    return ticks_s
+
+
+# tolerances of the CPU parity tests (tests/test_torch_rollout.py), as
+# fractions of each leaf's scale; float32 leaves not listed: 1e-3, the
+# plan's far horizon (x_f_mpc) is held in float64 only
+CARD_CPU_TOL32 = {"base_pos": 1e-5, "base_quat": 1e-5}
+CARD_CPU_TOL64 = 1e-9
+
+
+def check_card_vs_cpu(cfg, device):
+    """S3: one 20-tick rollout of B = 2 robots from one carry, on the
+    card and on the CPU through the port, in float32 and float64;
+    compared per log leaf with the CPU parity tests' tolerances."""
+    from qrw_tpu_torch.convert import tree_map
+    from qrw_tpu_torch.sim.rollout import make_rollout, rollout
+
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        ctl, carry = make_rollout(cfg, dtype=dtype, device="cpu")
+        carry = tree_map(lambda a: a.expand((2,) + tuple(a.shape)).clone(),
+                         carry)
+        dq = torch.as_tensor(np.random.default_rng(0).normal(
+            scale=0.01, size=(2, 12)), dtype=dtype)
+        q = carry.sim_state.q.clone()
+        q[:, 7:] += dq
+        carry = carry._replace(sim_state=carry.sim_state._replace(q=q))
+        reset_counts()
+        _, card = rollout(ctl, tree_map(lambda a: a.to(device), carry),
+                          S3_TICKS)
+        assert_no_kernel(f"S3 {dtype}")
+        _, cpu = rollout(ctl, carry, S3_TICKS)
+        f32 = dtype == torch.float32
+        for name, g, w in zip(cpu._fields, card, cpu):
+            g, w = g.cpu().numpy(), w.numpy()
+            assert g.shape == w.shape, name
+            if not np.issubdtype(w.dtype, np.floating):
+                assert (g == w).all(), f"{name} differs card vs CPU"
+                continue
+            if f32 and name == "x_f_mpc":
+                continue
+            scale = max(1.0, float(np.abs(w).max()))
+            err = float(np.abs(g - w).max()) / scale
+            tol = CARD_CPU_TOL32.get(name, 1e-3) if f32 else CARD_CPU_TOL64
+            worst[(str(dtype)[6:], name)] = (err, tol)
+            assert err <= tol, f"{name} ({dtype}): {err:.3g} of scale > {tol}"
+    top = sorted(worst.items(), key=lambda kv: -kv[1][0] / kv[1][1])[:4]
+    log(f"S3 card vs CPU, B = 2, {S3_TICKS} ticks, every log leaf: worst "
+        "(error / tolerance, of scale) " + "; ".join(
+            f"{d} {n} {e:.3g}/{t:g}" for (d, n), (e, t) in top))
 
 
 # ----------------------------------------------------------------------
@@ -1699,8 +1893,12 @@ def main() -> int:
     k2_launches = run_rescue_path(cfg, device)
     launches, _ = run_main_path(cfg, device)
     check_slice(cfg, ps, device)
-    k1_hetero, k2_hetero, _ = run_hetero_path(cfg, device)
-    check_hetero_slice(cfg, device)
+    capture, _ = run_shakedown(cfg, device)
+    calibration = {"bounding": capture}
+    k1_hetero, k2_hetero, _ = run_hetero_path(cfg, device, calibration)
+    check_hetero_slice(cfg, device, calibration)
+    run_batch_path(cfg, device)
+    check_card_vs_cpu(cfg, device)
     err3, k3, k3_ns0 = check_ns_kernel(cfg, device)
     err4, k4_ms, p4_ms, k4_bound, k4_ref, k4_variants = check_full_kernel(
         cfg, device)

@@ -9,10 +9,12 @@ through. `to_numpy` goes back: tensors become numpy arrays, and with
 `like` (a tree of the same structure, e.g. the qrw_tpu original) every
 NamedTuple takes the class found at the same place in `like`.
 
-Covered: PhaseQPData, PhaseStructure, ControllerState, SimState,
-DeviceData, MPCLaneState, MPCWarmState, MPCBatchState, FleetCarry and
-the solver results (PhaseQPResult, PallasQPResult, QPSolution), with
-everything they hold.
+Covered: PhaseQPData, PhaseStructure, ControllerState, SimState (with
+its Projectiles), DeviceData, MPCLaneState, MPCWarmState, MPCBatchState,
+FleetCarry, RolloutCarry, RolloutLog, Telemetry and the solver results
+(PhaseQPResult, PallasQPResult, QPSolution, MPCResult), with everything
+they hold. A carry broadcast to a leading batch axis (B, ...) converts
+the same way.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ def _registry():
                                         foot_trajectory, footstep, gait,
                                         kalman, mpc, mpc_lane, wbc)
         from qrw_tpu_torch.ops import qp, qp_pallas, qp_phase
-        from qrw_tpu_torch.sim import fleet, physics, terrain
+        from qrw_tpu_torch.sim import fleet, physics, rollout, terrain
         classes = [
             qp_phase.PhaseQPData, qp_phase.PhaseQPResult,
             qp_pallas.PallasQPResult, qp.QPSolution, mpc.MPCWarmState,
@@ -42,8 +44,10 @@ def _registry():
             foot_trajectory.FootTrajState, estimator.EstimatorState,
             estimator.EstimatorOutput, estimator.DeviceData,
             kalman.KF18State, mpc.MPCState, wbc.WBCState, wbc.WBCResult,
-            physics.SimState, fleet.FleetCarry, fleet.FleetLog,
-            fleet.FleetCycleLog, terrain.Terrain, terrain.FleetTerrain]
+            physics.SimState, physics.Projectiles, fleet.FleetCarry,
+            fleet.FleetLog, fleet.FleetCycleLog, terrain.Terrain,
+            terrain.FleetTerrain, mpc.MPCResult, controller.Telemetry,
+            rollout.RolloutCarry, rollout.RolloutLog]
         _REGISTRY = {c.__name__: c for c in classes}
     return _REGISTRY
 

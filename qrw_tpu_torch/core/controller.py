@@ -1,11 +1,15 @@
 """Main controller: the 500 Hz tick, split around the MPC solve.
 
-Partial port of qrw_tpu/core/controller.py: `make_controller`,
-`init_state`, `compute_pre` (joystick -> estimator -> hybrid state
-update -> gait -> footsteps -> swing trajectories -> reference states),
-`wbc_inputs` and `compute_post` with a precomputed WBC result (the
-fleet's lane-major WBC). Every function broadcasts over leading robot
-batch axes; the tick index `k` is a Python int.
+Port of qrw_tpu/core/controller.py: `make_controller`, `init_state`,
+`compute_pre` (joystick -> estimator -> hybrid state update -> gait ->
+footsteps -> swing trajectories -> reference states), `wbc_inputs`,
+`compute_post` (the per-robot WBC, or a precomputed WBC result: the
+fleet's lane-major WBC) and the whole tick `compute`, with the MPC
+solved every k_mpc ticks (core/mpc.solve_mpc), the `mpc_async` stale
+roll and the optional `Telemetry`. Every function broadcasts over
+leading robot batch axes; the tick index `k` is a Python int shared by
+the batch, so the JAX package's `lax.cond` on the solve tick is a
+Python branch here.
 
 The reference quirks the JAX package keeps on purpose are kept here
 too: the Coriolis terms of the foot references use the PREVIOUS tick's
@@ -13,9 +17,8 @@ feet_p_cmd / feet_v_cmd, the x/y/yaw hybrid state is integrated from the
 command ("perfect odometry"), and the security envelope reads the
 default Config's q_security.
 
-Not ported yet: the per-robot `compute` with its in-graph MPC, the
-per-robot WBC, and the DDP MPC backends (their imports stay lazy; a
-config that selects them raises NotImplementedError).
+Not ported yet: the DDP MPC backends (type_MPC=False, mpc_planner); a
+config that selects them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -95,16 +98,9 @@ def make_controller(cfg: Config,
                     wbc_settings: Optional[qp.QPSettings] = None
                     ) -> Controller:
     if mpc_settings is None:
-        mpc_settings = qp.QPSettings(
-            sigma=cfg.osqp_sigma, alpha=cfg.osqp_alpha, rho=cfg.osqp_rho,
-            eps_abs=cfg.osqp_eps_abs, eps_rel=cfg.osqp_eps_rel,
-            max_iter=cfg.mpc_max_iter,
-            adaptive_rho_interval=cfg.osqp_adaptive_rho_interval,
-            adaptive_rho_tolerance=cfg.osqp_adaptive_rho_tolerance)
+        mpc_settings = mpc_mod.mpc_settings(cfg)
     if wbc_settings is None:
-        wbc_settings = qp.QPSettings(eps_abs=cfg.wbc_eps_abs,
-                                     eps_rel=cfg.wbc_eps_rel,
-                                     max_iter=cfg.wbc_max_iter)
+        wbc_settings = wbc_mod.wbc_settings(cfg)
     return Controller(cfg=cfg, model=rbd.to_torch(make_solo12()),
                       patterns=gait_mod.gait_patterns(cfg),
                       mpc_settings=mpc_settings, wbc_settings=wbc_settings)
@@ -138,6 +134,14 @@ def init_state(ctl: Controller, dtype=torch.float32, gait: str = "trot",
         feet_v_cmd=torch.zeros((3, 4), **kw), planner_target=p0.clone(),
         error=torch.tensor(False, device=device),
         error_code=torch.zeros((), dtype=torch.int32, device=device))
+
+
+class Telemetry(NamedTuple):
+    """Extra per-tick signals for structured logging."""
+    f_wbc: torch.Tensor         # (..., 12) WBC QP output forces
+    feet_pos_mes: torch.Tensor  # (..., 3, 4) foot positions, IK config
+    feet_vel_mes: torch.Tensor  # (..., 3, 4) foot velocities (base frame)
+    feet_a_cmd: torch.Tensor    # (..., 3, 4) commanded foot accelerations
 
 
 class PreMPC(NamedTuple):
@@ -264,20 +268,77 @@ def wbc_inputs(ctl: Controller, state: ControllerState, pre: PreMPC,
                      feet_a_cmd=feet_a_cmd)
 
 
+def _stale_roll(cfg: Config, gait_current, plan, k: int):
+    """Staleness compensation of the async MPC path: shift the force
+    plan one step left and, on a gait-phase change, rebuild the terminal
+    forces by equal weight over the final stance feet. gait_current
+    (..., N_gait, 4), plan (..., 24, N)."""
+    rolled = torch.cat([plan[..., :12, :],
+                        torch.roll(plan[..., 12:, :], -1, dims=-1)], dim=-2)
+    if k <= 2:
+        return rolled
+    g = gait_current
+    n_rows = (g > 0).any(dim=-1).sum(dim=-1)                    # (...)
+    last = torch.gather(g, -2, torch.clamp(n_rows - 1, min=0)[
+        ..., None, None].expand(g.shape[:-2] + (1, 4)))[..., 0, :]
+    changed = (last != g[..., 0, :]).any(dim=-1)
+    F = cfg.mass * cfg.gravity / torch.clamp(last.sum(-1), min=1.0)
+    zero = torch.zeros_like(last)
+    term = torch.stack([zero, zero, F[..., None] * last], dim=-1).reshape(
+        last.shape[:-1] + (12,)).to(plan.dtype)
+    fresh = torch.cat([rolled[..., 12:, :-1], term[..., None]], dim=-1)
+    fresh = torch.cat([rolled[..., :12, :], fresh], dim=-2)
+    return torch.where(changed[..., None, None], fresh, rolled)
+
+
+def compute(ctl: Controller, state: ControllerState, device: DeviceData,
+            k: int, v_ref6=None, joystick_code: int = 0,
+            perfect_estimator: bool = False,
+            return_telemetry: bool = False):
+    """One control tick (Controller.compute): compute_pre, the MPC on
+    every k_mpc-th tick (the latest plan held otherwise), compute_post.
+    Returns (new_state, Result), or (new_state, Result, Telemetry) with
+    return_telemetry."""
+    cfg = ctl.cfg
+    if cfg.mpc_planner or not cfg.type_MPC:
+        raise NotImplementedError("the DDP MPC backends are not ported yet")
+    pre = compute_pre(ctl, state, device, k, v_ref6, joystick_code,
+                      perfect_estimator)
+    if cfg.mpc_every_tick or k % cfg.k_mpc == 0:
+        res = mpc_mod.solve_mpc(cfg, pre.xref, pre.fsteps, state.mpc,
+                                ctl.mpc_settings)
+        x_f_next = res.x_f_applied
+        x_f_mpc = x_f_next
+        if cfg.mpc_async and k != 0:
+            # one-period-stale consumption: the previous plan, rolled; the
+            # fresh solve is applied next period
+            x_f_mpc = _stale_roll(cfg, pre.gait.current, state.x_f_next, k)
+        mpc_state = res.state
+    else:
+        x_f_mpc, x_f_next, mpc_state = (state.x_f_mpc, state.x_f_next,
+                                        state.mpc)
+    return compute_post(ctl, state, pre, k, x_f_mpc, x_f_next, mpc_state,
+                        state.planner_target,
+                        return_telemetry=return_telemetry)
+
+
 def compute_post(ctl: Controller, state: ControllerState, pre: PreMPC,
                  k: int, x_f_mpc, x_f_next, mpc_state, planner_target,
-                 wbc_res=None):
-    """Second half of a control tick: WBC target assembly, security
-    check, state update. `wbc_res` is the WBCResult for this tick's
-    `wbc_inputs(...)` (the fleet computes it lane-major)."""
-    if wbc_res is None:
-        raise NotImplementedError(
-            "the per-robot WBC is not ported yet: pass wbc_res")
+                 wbc_res=None, return_telemetry: bool = False):
+    """Second half of a control tick: WBC target assembly, whole-body
+    controller, security check, state update. `wbc_res`: a precomputed
+    WBCResult for this tick's `wbc_inputs(...)` (the fleet computes it
+    lane-major); None runs the per-robot WBC here."""
     cfg = ctl.cfg
     dtype = state.q.dtype
     est = pre.est
 
     inp = wbc_inputs(ctl, state, pre, x_f_mpc)
+    if wbc_res is None:
+        wbc_res = wbc_mod.compute_wbc(
+            cfg, ctl.model, state.wbc, inp.qj, inp.b_v, inp.f_cmd,
+            inp.contacts, inp.feet_p_cmd, inp.feet_v_cmd, inp.feet_a_cmd,
+            ctl.wbc_settings)
 
     # security check (scripts/Controller.py:341-365)
     q_sec = torch.as_tensor(np.tile(np.asarray(Config().q_security), 4),
@@ -311,4 +372,10 @@ def compute_post(ctl: Controller, state: ControllerState, pre: PreMPC,
         yaw_estim=pre.yaw_estim, qdes=wbc_res.qdes, vdes=wbc_res.vdes,
         feet_p_cmd=inp.feet_p_cmd, feet_v_cmd=inp.feet_v_cmd,
         planner_target=planner_target, error=new_err, error_code=code)
+    if return_telemetry:
+        return new_state, result, Telemetry(
+            f_wbc=wbc_res.f_with_delta,
+            feet_pos_mes=wbc_res.feet_pos.transpose(-1, -2),
+            feet_vel_mes=wbc_res.feet_vel.transpose(-1, -2),
+            feet_a_cmd=inp.feet_a_cmd)
     return new_state, result

@@ -1,15 +1,16 @@
 """Centroidal convex MPC: condensed-QP assembly and the batched solvers.
 
-Partial port of qrw_tpu/core/mpc.py (mpc.py:65-590): the warm-start state
-carried by ControllerState, the constant cone matrix, the shared assembly
-of input blocks and free response, the structured condensed-QP build
+Port of qrw_tpu/core/mpc.py: the warm-start state carried by
+ControllerState, the constant cone matrix, the shared assembly of input
+blocks and free response, the dense condensed-QP build (build_qp, G
+materialized) and the per-problem solve_mpc of the single-robot
+controller (ops/qp.solve with the cone structure), the structured build
 (build_qp_compact), the support selection, the support-reduced QP
 assembly (the shared proximal metric of core/mpc_lane.build_phase_data,
 and the rescue stage's problems), recover_dx, solve_mpc_batch_reduced
 with its warm carry (the solver of the rescue stage), and the full-size
 batched path solve_mpc_batch_pallas with its warm carry MPCBatchState
-and shift_warm_state. The per-problem XLA-style solver (solve_mpc) and
-the dense build_qp are not ported yet.
+and shift_warm_state.
 
 States are eliminated analytically: dx = G f + h with
 G[k, j] = A^(k-1-j) B_j and A^p = I + p dt E (E nilpotent), as in the
@@ -60,6 +61,14 @@ def init_mpc_state(cfg: Config, dtype=torch.float32,
     return MPCState(
         f=torch.zeros(12 * cfg.n_steps, dtype=dtype, device=device),
         y=torch.zeros(32 * cfg.n_steps, dtype=dtype, device=device))
+
+
+class MPCResult(NamedTuple):
+    """One solve of the per-problem MPC."""
+    x_f_applied: torch.Tensor  # (..., 24, N) predicted states then forces
+    state: MPCState
+    iters: torch.Tensor        # (...)
+    converged: torch.Tensor    # (...)
 
 
 def gait_from_fsteps(fsteps, n_steps: int):
@@ -124,6 +133,67 @@ def _assemble_common(cfg: Config, xref, fsteps):
     u_b = torch.where(contact > 0, inf, 0.0).to(dtype)
     return (Bl, hblk, torch.cat([l_f, l_b], dim=-1),
             torch.cat([u_f, u_b], dim=-1), mask, p)
+
+
+def build_qp(cfg: Config, xref, fsteps):
+    """Dense condensed QP from the planner outputs: xref (..., 12, N+1)
+    reference states (column 0 the current state), fsteps (..., N_gait,
+    12) footstep rows. Returns (H, qlin, l, u, G, h); dx = G f + h."""
+    N = cfg.n_steps
+    dt = cfg.dt_mpc
+    dtype, dev = xref.dtype, xref.device
+    bs = tuple(xref.shape[:-2])
+    Bl, hblk, l, u, mask, p = _assemble_common(cfg, xref, fsteps)
+
+    # row block k holds dx_{k+1} = sum_{j<=k} A^(k-j) (B_j f_j + r_j)
+    top = (mask * p.to(dtype) * dt)[:, :, None, None] * Bl[..., None, :, :, :]
+    bot = mask[:, :, None, None] * Bl[..., None, :, :, :]
+    Gblk = torch.cat([top, bot], dim=-2)                 # (..., N, N, 12, 12)
+    G = Gblk.transpose(-3, -2).reshape(bs + (12 * N, 12 * N))
+    h = hblk.reshape(bs + (12 * N,))
+
+    W = torch.as_tensor(np.tile(np.asarray(cfg.w_state), N), dtype=dtype,
+                        device=dev)
+    GW = G * W[:, None]
+    H = G.transpose(-1, -2) @ GW + cfg.w_force * torch.eye(
+        12 * N, dtype=dtype, device=dev)
+    qlin = (GW.transpose(-1, -2) @ h[..., None])[..., 0]
+    return H, qlin, l, u, G, h
+
+
+def mpc_settings(cfg: Config) -> qp.QPSettings:
+    """The reference's OSQP settings of the MPC (src/MPC.cpp:501-564)."""
+    return qp.QPSettings(
+        sigma=cfg.osqp_sigma, alpha=cfg.osqp_alpha, rho=cfg.osqp_rho,
+        eps_abs=cfg.osqp_eps_abs, eps_rel=cfg.osqp_eps_rel,
+        max_iter=cfg.mpc_max_iter,
+        adaptive_rho_interval=cfg.osqp_adaptive_rho_interval,
+        adaptive_rho_tolerance=cfg.osqp_adaptive_rho_tolerance)
+
+
+def solve_mpc(cfg: Config, xref, fsteps, state: Optional[MPCState] = None,
+              settings: Optional[qp.QPSettings] = None) -> MPCResult:
+    """One MPC solve per problem (MPC::run): xref (..., 12, N+1), fsteps
+    (..., N_gait, 12), state the previous solution (warm start). A
+    leading batch axis solves each robot's problem on its own, as
+    qrw_tpu's jax.vmap of this function does."""
+    N = cfg.n_steps
+    dtype, dev = xref.dtype, xref.device
+    bs = tuple(xref.shape[:-2])
+    if settings is None:
+        settings = mpc_settings(cfg)
+    H, qlin, l, u, G, h = build_qp(cfg, xref, fsteps)
+    A = torch.as_tensor(cone_matrix(N, cfg.mu), dtype=dtype, device=dev)
+    sol = qp.solve(H, qlin, A, l, u, settings,
+                   x0=None if state is None else state.f,
+                   y0=None if state is None else state.y,
+                   cone=qp.ConeStructure(N, cfg.mu))
+    dx = (G @ sol.x[..., None])[..., 0] + h
+    states = dx.reshape(bs + (N, 12)).transpose(-1, -2) + xref[..., :, 1:N + 1]
+    forces = sol.x.reshape(bs + (N, 12)).transpose(-1, -2)
+    return MPCResult(x_f_applied=torch.cat([states, forces], dim=-2),
+                     state=MPCState(f=sol.x, y=sol.y), iters=sol.iters,
+                     converged=sol.converged)
 
 
 @functools.lru_cache(maxsize=8)

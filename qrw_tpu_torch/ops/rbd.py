@@ -1,9 +1,12 @@
-"""Rigid-body model of the Solo-12 and its foot frame kinematics.
+"""Rigid-body dynamics of the Solo-12 (the Pinocchio replacement).
 
-Partial port of qrw_tpu/ops/rbd.py: the model conversion (`TorchModel`,
-`to_torch`, `_legs_view`, `_np_skew`) and `frame_kinematics`. The rest
-(fk_world, foot_jacobians, rnea, crba in the 18x18 form) is not on the
-fleet path, which runs the lane-major twins in ops/rbd_lane.py.
+Port of qrw_tpu/ops/rbd.py: the model conversion (`TorchModel`,
+`to_torch`), forward kinematics (`fk_world`), the foot frame kinematics
+(`frame_kinematics`), the LOCAL_WORLD_ALIGNED foot Jacobians
+(`foot_jacobians`), RNEA inverse dynamics (`rnea`,
+`nonlinear_effects`) and the CRBA joint-space inertia (`crba`, 18 x 18)
+of the single-robot controller and simulator. The fleet runs the
+lane-major twins in ops/rbd_lane.py.
 
 Conventions match Pinocchio's free-flyer, as in the JAX package. The
 four legs are batched on a leg axis of size 4 (bodies are leg-major,
@@ -169,3 +172,269 @@ def frame_kinematics(model: TorchModel, base_pos, base_quat, qj,
 
     return FrameKin(pos=pos, vel=vel, omega=wp, drift=drift,
                     R=assemble13(R0, Rs), p=assemble13(base_pos, ps))
+
+
+# ----------------------------------------------------------------------
+# World-frame kinematics and Jacobians (leading robot batch axes)
+# ----------------------------------------------------------------------
+
+def _skew_legs(v):
+    """(..., 3) -> (..., 3, 3) cross-product matrices."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], z, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], z], -1)], -2)
+
+
+def _assemble13(x0, xs, nb: int):
+    """(x0 (..., *e), three (..., 4, *e) levels) -> (..., 13, *e),
+    body-ordered (body 1 + 3 * leg + level); nb: the batch rank."""
+    legs = torch.stack(xs, dim=nb + 1)         # (..., 4, 3, *e)
+    legs = legs.reshape(tuple(legs.shape[:nb]) + (12,)
+                        + tuple(legs.shape[nb + 2:]))
+    return torch.cat([x0.unsqueeze(nb), legs], dim=nb)
+
+
+def fk_world(model: TorchModel, base_pos, base_quat, qj):
+    """Forward kinematics: world rotation and origin of each body,
+    (R (..., 13, 3, 3), p (..., 13, 3))."""
+    model = _cast_model(model, qj.dtype, qj.device)
+    axes = _legs_view(model.joint_axis)
+    jpos = _legs_view(model.joint_pos)
+    batch = qj.shape[:-1]
+    q = qj.reshape(batch + (4, 3))
+    R0 = quat_to_rot(base_quat)
+    Rp = R0.unsqueeze(-3).expand(batch + (4, 3, 3))
+    pp = base_pos.unsqueeze(-2).expand(batch + (4, 3))
+    Rs, ps = [], []
+    for l in range(3):
+        Rj = _axis_rot_legs(axes[:, l], q[..., l])
+        ps.append(pp + _mv(Rp, jpos[:, l]))
+        Rs.append(Rp @ Rj)
+        Rp, pp = Rs[-1], ps[-1]
+    return (_assemble13(R0, Rs, len(batch)),
+            _assemble13(base_pos, ps, len(batch)))
+
+
+def foot_jacobians(model: TorchModel, base_pos, base_quat, qj, fk=None):
+    """LOCAL_WORLD_ALIGNED linear foot Jacobians, (..., 4, 3, 18):
+    columns 0:6 act on the local base twist [linear; angular], 6:18 on
+    the joint rates (block-diagonal per leg). fk: optional (R, p) body
+    poses of fk_world / frame_kinematics at the same configuration."""
+    dtype, dev = qj.dtype, qj.device
+    model = _cast_model(model, dtype, dev)
+    if fk is None:
+        fk = fk_world(model, base_pos, base_quat, qj)
+    R13, p13 = fk
+    batch = qj.shape[:-1]
+    R0, p0 = R13[..., 0, :, :], p13[..., 0, :]
+    R_legs = R13[..., 1:, :, :].reshape(batch + (4, 3, 3, 3))
+    p_legs = p13[..., 1:, :].reshape(batch + (4, 3, 3))
+    axes = _legs_view(model.joint_axis)
+
+    # world joint axes: parent rotation per level (base, lvl0, lvl1)
+    Rpar = torch.cat([R0[..., None, None, :, :].expand(batch + (4, 1, 3, 3)),
+                      R_legs[..., :, :2, :, :]], dim=-3)
+    axes_w = _mv(Rpar, axes)                                 # (..., 4, 3, 3)
+    pf = p_legs[..., :, 2, :] + _mv(R_legs[..., :, 2, :, :], model.foot_pos)
+    cols = _cr(axes_w, pf[..., :, None, :] - p_legs)
+    eye4 = torch.eye(4, dtype=dtype, device=dev)
+    Jj = (eye4[:, None, :, None]
+          * cols.transpose(-1, -2)[..., :, :, None, :]).reshape(
+              batch + (4, 3, 12))
+    Jb_lin = R0.unsqueeze(-3).expand(batch + (4, 3, 3))
+    Jb_ang = -(_skew_legs(pf - p0[..., None, :]) @ R0.unsqueeze(-3))
+    return torch.cat([Jb_lin, Jb_ang, Jj], dim=-1)
+
+
+# ----------------------------------------------------------------------
+# Featherstone spatial algebra (local coordinates, angular-first)
+# ----------------------------------------------------------------------
+
+def _cr(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b)
+
+
+def _xmot_legs(E, r, m):
+    """Motion transform child <- parent, legs batched: E (..., 4, 3, 3),
+    r (4, 3), m (..., 4, 6) with m = (omega, v)."""
+    w, v = m[..., :3], m[..., 3:]
+    return torch.cat([_mv(E, w), _mv(E, v - _cr(r, w))], dim=-1)
+
+
+def _xforce_legs(E, r, f):
+    """Force transform child -> parent, legs batched: f = (n, f_lin)."""
+    n, fl = f[..., :3], f[..., 3:]
+    Et = E.transpose(-1, -2)
+    fl_p = _mv(Et, fl)
+    n_p = _mv(Et, n) + _cr(r, fl_p)
+    return torch.cat([n_p, fl_p], dim=-1)
+
+
+def _cross_motion(a, b):
+    aw, av = a[..., :3], a[..., 3:]
+    bw, bv = b[..., :3], b[..., 3:]
+    return torch.cat([_cr(aw, bw), _cr(aw, bv) + _cr(av, bw)], dim=-1)
+
+
+def _cross_force(v, f):
+    w, vl = v[..., :3], v[..., 3:]
+    n, fl = f[..., :3], f[..., 3:]
+    return torch.cat([_cr(w, n) + _cr(vl, fl), _cr(w, fl)], dim=-1)
+
+
+def _apply_inertia(mass, com, inertia_o, v6):
+    """Spatial inertia applied to motion: mass (...,), com (..., 3),
+    inertia_o (..., 3, 3), v6 (..., 6) = (omega, v) -> (n, f)."""
+    w, vl = v6[..., :3], v6[..., 3:]
+    m = mass[..., None]
+    n = _mv(inertia_o, w) + m * _cr(com, vl)
+    f = m * vl - m * _cr(com, w)
+    return torch.cat([n, f], dim=-1)
+
+
+def _spatial_inertia(mass, com, inertia_o):
+    """6x6 spatial inertias (angular-first): (...,) masses -> (..., 6, 6)."""
+    cx = _skew_legs(com)
+    m = mass[..., None, None]
+    eye = torch.eye(3, dtype=com.dtype, device=com.device).expand(
+        cx.shape)
+    top = torch.cat([inertia_o, m * cx], dim=-1)
+    bot = torch.cat([-m * cx, m * eye], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _xmat_legs(E, r):
+    """6x6 motion transforms child <- parent (angular-first),
+    (..., 4, 6, 6)."""
+    z = torch.zeros_like(E)
+    top = torch.cat([E, z], dim=-1)
+    bot = torch.cat([-(E @ _skew_legs(r)), E], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _reorder(v6):
+    """[a; b] -> [b; a] over the last axis of 6: pinocchio [linear;
+    angular] <-> featherstone (angular, linear)."""
+    return torch.cat([v6[..., 3:6], v6[..., 0:3]], dim=-1)
+
+
+def _joint_frames(model: TorchModel, qj):
+    """Per-level joint transforms: Es[l] (..., 4, 3, 3) child <- parent
+    rotation, rs[l] (4, 3) joint origins, S[l] (4, 6) motion subspaces."""
+    axes = _legs_view(model.joint_axis)
+    jpos = _legs_view(model.joint_pos)
+    q = qj.reshape(qj.shape[:-1] + (4, 3))
+    z3 = torch.zeros((4, 3), dtype=qj.dtype, device=qj.device)
+    Es = [_axis_rot_legs(axes[:, l], q[..., l]).transpose(-1, -2)
+          for l in range(3)]
+    rs = [jpos[:, l] for l in range(3)]
+    Ss = [torch.cat([axes[:, l], z3], dim=-1) for l in range(3)]
+    return Es, rs, Ss
+
+
+def rnea(model: TorchModel, base_quat, qj, v, a, gravity: float = 9.81):
+    """Recursive Newton-Euler inverse dynamics: v, a (..., 18) in the
+    Pinocchio free-flyer convention -> tau (..., 18), rows 0:6 the base
+    wrench [force; torque] in the base frame, rows 6:18 joint torques."""
+    dtype, dev = v.dtype, v.device
+    model = _cast_model(model, dtype, dev)
+    batch = v.shape[:-1]
+    Es, rs, Ss = _joint_frames(model, qj)
+    mass = _legs_view(model.mass)                 # (4, 3)
+    com = _legs_view(model.com)                   # (4, 3, 3)
+    Io = _legs_view(model.inertia_o)              # (4, 3, 3, 3)
+    vj = v[..., 6:].reshape(batch + (4, 3))
+    aj = a[..., 6:].reshape(batch + (4, 3))
+
+    R0 = quat_to_rot(base_quat)
+    v0 = _reorder(v[..., :6])
+    gvec = torch.tensor([0.0, 0.0, gravity], dtype=dtype, device=dev)
+    # gravity pseudo-acceleration in base coordinates
+    a0 = _reorder(a[..., :6]) + torch.cat(
+        [torch.zeros(batch + (3,), dtype=dtype, device=dev),
+         _mv(R0.transpose(-1, -2), gvec)], dim=-1)
+
+    vp = v0.unsqueeze(-2).expand(batch + (4, 6))
+    ap = a0.unsqueeze(-2).expand(batch + (4, 6))
+    fs = []
+    for l in range(3):
+        Sd = Ss[l] * vj[..., l, None]
+        vi = _xmot_legs(Es[l], rs[l], vp) + Sd
+        ai = (_xmot_legs(Es[l], rs[l], ap) + Ss[l] * aj[..., l, None]
+              + _cross_motion(vi, Sd))
+        fi = (_apply_inertia(mass[:, l], com[:, l], Io[:, l], ai)
+              + _cross_force(vi, _apply_inertia(mass[:, l], com[:, l],
+                                                Io[:, l], vi)))
+        fs.append(fi)
+        vp, ap = vi, ai
+
+    f0 = (_apply_inertia(model.mass[0], model.com[0], model.inertia_o[0], a0)
+          + _cross_force(v0, _apply_inertia(model.mass[0], model.com[0],
+                                            model.inertia_o[0], v0)))
+    tau = [None] * 3
+    f_acc = fs[2]
+    for l in (2, 1, 0):
+        tau[l] = (Ss[l] * f_acc).sum(-1)                     # (..., 4)
+        if l > 0:
+            f_acc = fs[l - 1] + _xforce_legs(Es[l], rs[l], f_acc)
+        else:
+            f0 = f0 + _xforce_legs(Es[0], rs[0], f_acc).sum(-2)
+    tau_j = torch.stack(tau, dim=-1).reshape(batch + (12,))  # leg-major
+    return torch.cat([_reorder(f0), tau_j], dim=-1)
+
+
+def crba(model: TorchModel, qj):
+    """Composite-rigid-body joint-space inertia M (..., 18, 18) in the
+    Pinocchio free-flyer coordinates; the base orientation does not
+    enter M in local coordinates."""
+    dtype, dev = qj.dtype, qj.device
+    model = _cast_model(model, dtype, dev)
+    batch = qj.shape[:-1]
+    Es, rs, Ss = _joint_frames(model, qj)
+    mass = _legs_view(model.mass)
+    com = _legs_view(model.com)
+    Io = _legs_view(model.inertia_o)
+    X = [_xmat_legs(Es[l], rs[l]) for l in range(3)]
+    Ic = [_spatial_inertia(mass[:, l], com[:, l], Io[:, l]).expand(
+        batch + (4, 6, 6)) for l in range(3)]
+    XT = [x.transpose(-1, -2) for x in X]
+    # composite inertias up the chain (legs batched)
+    for l in (2, 1):
+        Ic[l - 1] = Ic[l - 1] + XT[l] @ Ic[l] @ X[l]
+    from_base = XT[0] @ Ic[0] @ X[0]
+    Icb = _spatial_inertia(model.mass[0], model.com[0],
+                           model.inertia_o[0]) + from_base.sum(-3)
+
+    # joint-joint block: per-leg 3x3, pairs (i, j <= i) via propagated F
+    H = {}
+    cols_b = [None] * 3                          # base coupling per level
+    for i in (2, 1, 0):
+        F = _mv(Ic[i], Ss[i])                     # (..., 4, 6)
+        H[i, i] = (Ss[i] * F).sum(-1)
+        for j in range(i - 1, -1, -1):
+            F = _mv(XT[j + 1], F)                 # X' F
+            H[i, j] = H[j, i] = (F * Ss[j]).sum(-1)
+        cols_b[i] = _mv(XT[0], F)                 # into the base
+    Hleg = torch.stack([torch.stack([H[i, j] for j in range(3)], dim=-1)
+                        for i in range(3)], dim=-2)          # (..., 4, 3, 3)
+    # (..., 4 legs, 3 levels, 6): featherstone (n, f) -> [force; torque]
+    cols_b = _reorder(torch.stack(cols_b, dim=-2))
+
+    eye4 = torch.eye(4, dtype=dtype, device=dev)
+    Hjj = (eye4[:, None, :, None] * Hleg[..., :, :, None, :]).reshape(
+        batch + (12, 12))
+    Hbj = cols_b.reshape(batch + (12, 6)).transpose(-1, -2)  # (..., 6, 12)
+    Hbb = _reorder(_reorder(Icb).transpose(-1, -2)).transpose(-1, -2)
+    top = torch.cat([Hbb, Hbj], dim=-1)
+    bot = torch.cat([Hbj.transpose(-1, -2), Hjj], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def nonlinear_effects(model: TorchModel, base_quat, qj, v,
+                      gravity: float = 9.81):
+    """Coriolis + centrifugal + gravity generalized forces (..., 18):
+    rnea(q, v, 0)."""
+    return rnea(model, base_quat, qj, v, torch.zeros_like(v), gravity)

@@ -1,22 +1,37 @@
-"""Command-line entry point of the port: the closed-loop fleets.
+"""Command-line entry point of the port: closed-loop walking runs.
 
-Port of the `--fleet` and `--hetero` modes of qrw_tpu/runtime/main.py.
-B robots walk in closed loop; every 50 Hz cycle their MPC problems are
-solved in ONE batched phase-solver launch (the CUDA kernel K1 of
-ops/qp_phase on the card), and the lanes that fail it are re-solved by
-the rescue stage (kernel K2 of ops/qp_pallas), whose capacity defaults
-to max(4, B // 32) lanes as in the JAX entry point.
-
-    python -m qrw_tpu_torch.runtime.main --fleet 1024
-    python -m qrw_tpu_torch.runtime.main --hetero 4096
+Port of qrw_tpu/runtime/main.py. With no mode flag it runs the
+reference's main control loop for one robot (sim/rollout: the
+controller with its per-robot MPC and WBC against the simulator), or
+`--batch B` robots at once along a leading axis, each perturbed in its
+joint angles by np.random.default_rng(seed).normal(scale=0.01) exactly
+as the JAX entry point draws them; `--gait`, `--velID`, `--envID`
+(1: the stairs course with its thrown spheres), `--bumpy`, `--perfect`,
+`--f64` and `--ticks` select the scenario, as there.
 
 `--fleet` is the trot fleet on flat ground, with the complementary-
 filter estimator unless `--perfect` is given. `--hetero` is the
 heterogeneous fleet: gaits {trot, walk, bounding} per 128-robot tile,
 velocity profiles velID 0-6 and terrains {flat, bumpy, stairs} per
-robot, the real estimator in the loop. Both run once (the kernel build
-and warm-up) and then time a second run from the same initial carry.
-Every other mode of the JAX entry point exits with "not yet ported".
+robot, the real estimator in the loop; on the card bounding's phase
+classes are calibrated from a single-robot shakedown capture first, as
+the JAX entry point does on an accelerator. Every 50 Hz cycle the
+fleets solve their MPC problems in ONE batched phase-solver launch (the
+CUDA kernel K1 of ops/qp_phase on the card), and the lanes that fail it
+are re-solved by the rescue stage (kernel K2 of ops/qp_pallas), whose
+capacity defaults to max(4, B // 32) lanes as in the JAX entry point.
+Both fleets run once (the kernel build and warm-up) and then time a
+second run from the same initial carry.
+
+    python -m qrw_tpu_torch.runtime.main
+    python -m qrw_tpu_torch.runtime.main --batch 256 --ticks 500
+    python -m qrw_tpu_torch.runtime.main --cpu --ticks 20 --batch 2
+    python -m qrw_tpu_torch.runtime.main --fleet 1024
+    python -m qrw_tpu_torch.runtime.main --hetero 4096
+
+Everything runs on the card (`--device cuda`) unless `--cpu` or
+`--device cpu` asks for the CPU. Every other mode of the JAX entry
+point exits with "not yet ported".
 """
 
 from __future__ import annotations
@@ -43,21 +58,36 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="rescue-stage capacity in lanes (default "
                         "max(4, B // 32); 0 turns the stage off)")
     p.add_argument("--perfect", action="store_true",
-                   help="--fleet: perfect estimator (simulator ground "
-                        "truth) instead of the complementary filter")
+                   help="perfect estimator (simulator ground truth) "
+                        "instead of the complementary filter")
     p.add_argument("--config", default=None, help="YAML config path")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
-                   help="torch device of the fleet (default cuda)")
-    p.add_argument("--ticks", type=int, default=None)
-    p.add_argument("--velID", type=int, default=None)
+                   help="torch device (default cuda)")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (same as --device cpu)")
+    p.add_argument("--f64", action="store_true", help="run in float64")
+    p.add_argument("--ticks", type=int, default=None,
+                   help="number of 2 ms control ticks (default from "
+                        "config)")
+    p.add_argument("--velID", type=int, default=None,
+                   help="predefined velocity profile 0..6")
+    p.add_argument("--batch", type=int, default=0,
+                   help="single-robot mode: run N perturbed robots at "
+                        "once (0 = one)")
+    p.add_argument("--gait", default="trot",
+                   choices=["trot", "walk", "pacing", "bounding", "static"])
+    p.add_argument("--envID", type=int, default=None,
+                   help="single-robot mode: 0 flat, 1 the stairs course")
+    p.add_argument("--bumpy", action="store_true",
+                   help="single-robot mode: procedural bumpy terrain")
     # modes of the JAX entry point that the port does not have yet
-    for flag in ("--batch", "--fleet-mpc"):
-        p.add_argument(flag, type=int, default=0)
+    p.add_argument("--fleet-mpc", type=int, default=0)
     for flag in ("--host-loop", "--sweep", "--estimator-demo", "--kf",
-                 "--ddp", "--bumpy", "--mesh", "--f64", "--cpu"):
+                 "--ddp", "--mesh", "--clone", "--gamepad", "--realtime"):
         p.add_argument(flag, action="store_true")
-    p.add_argument("--envID", type=int, default=None)
+    p.add_argument("--save", nargs="?", const="", default=None)
+    p.add_argument("--plot", nargs="?", const="qrw_run", default=None)
     return p
 
 
@@ -101,16 +131,34 @@ def run_fleet(cfg, batch: int, tile: int, seed: int, device: str,
     return out + (wall, first)
 
 
-def run_hetero(cfg, batch: int, tile: int, seed: int, device: str,
-               n_cycles: int, rescue: int):
-    """Build the heterogeneous fleet (uncalibrated metric) and run it
-    twice from the same initial carry, without tick logs; returns
-    (carry, cycle logs, meta, wall seconds of the second run, wall
-    seconds of the first)."""
+def shakedown_calibration(cfg, device: str):
+    """make_hetero_fleet's calibration, as the JAX entry point chooses
+    it: bounding's footholds from a single-robot shakedown capture on
+    the card, None (the nominal metric) on the CPU."""
+    import torch
+
     from qrw_tpu_torch.sim import fleet as fl
 
+    if torch.device(device).type == "cpu":
+        return None
+    return {"bounding": fl.hetero_shakedown_capture(cfg, "bounding",
+                                                    device=device)}
+
+
+def run_hetero(cfg, batch: int, tile: int, seed: int, device: str,
+               n_cycles: int, rescue: int, calibration=None):
+    """Build the heterogeneous fleet and run it twice from the same
+    initial carry, without tick logs. calibration: make_hetero_fleet's
+    {gait: captured fsteps}, or None for shakedown_calibration's
+    choice. Returns (carry, cycle logs, meta, wall seconds of the second
+    run, wall seconds of the first)."""
+    from qrw_tpu_torch.sim import fleet as fl
+
+    if calibration is None:
+        calibration = shakedown_calibration(cfg, device)
     ctl, carry, ps, terrain, meta = fl.make_hetero_fleet(
-        cfg, batch, tile=tile, seed=seed, device=device)
+        cfg, batch, tile=tile, seed=seed, device=device,
+        calibration=calibration)
     sched = fl.hetero_v_ref_schedule(cfg, meta.velID, n_cycles * cfg.k_mpc,
                                      device=device)
     (c2, _, cyc), wall, first = _timed_twice(device, lambda: fl.fleet_rollout(
@@ -123,16 +171,20 @@ def run_hetero(cfg, batch: int, tile: int, seed: int, device: str,
 
 
 def hetero_summary(carry, cyc, meta, tile: int) -> dict:
-    """The heterogeneous fleet's health: MPC conv, upright share
-    (z > 0.15 m) overall, per gait and per terrain, latched robots and
-    whether every height is finite."""
+    """The heterogeneous fleet's health: MPC conv overall and per gait,
+    upright share (z > 0.15 m) overall, per gait and per terrain,
+    latched robots and whether every height is finite."""
     import numpy as np
 
     z = carry.sim_states.q[:, 2].cpu().numpy()
     up = z > 0.15
+    conv = cyc.converged.float().cpu().numpy()             # (C, B)
     scen_gait = np.repeat(meta.tile_gait, tile)
     return dict(
-        conv=float(cyc.converged.float().mean()),
+        conv=float(conv.mean()),
+        conv_per_gait={meta.gait_names[g]: float(conv[:, scen_gait == g]
+                                                 .mean())
+                       for g in range(len(meta.gait_names))},
         upright=float(up.mean()),
         per_gait={meta.gait_names[g]: float(up[scen_gait == g].mean())
                   for g in range(len(meta.gait_names))},
@@ -144,22 +196,93 @@ def hetero_summary(carry, cyc, meta, tile: int) -> dict:
         rescued=int(cyc.rescued.sum()))
 
 
+def run_single(cfg, args, device: str, dtype):
+    """The single-robot closed loop (or --batch robots): returns (final
+    carry, logs, wall seconds)."""
+    import numpy as np
+    import torch
+
+    from qrw_tpu_torch.convert import tree_map
+    from qrw_tpu_torch.sim.faults import default_perturbations
+    from qrw_tpu_torch.sim.rollout import make_rollout, rollout
+    from qrw_tpu_torch.sim.terrain import make_terrain
+
+    n_ticks = cfg.N_SIMULATION
+    terrain = make_terrain(cfg, dtype, device)
+    f_ext = default_perturbations(cfg, n_ticks)
+    ctl, carry = make_rollout(cfg, dtype=dtype, gait=args.gait,
+                              terrain=terrain, device=device)
+    cuda = torch.device(device).type == "cuda"
+    print(f"backend={torch.device(device).type} devices="
+          f"{torch.cuda.device_count() if cuda else 1} ticks={n_ticks} "
+          f"velID={cfg.velID} gait={args.gait} batch={args.batch or 1}")
+    if args.batch:
+        B = args.batch
+        rng = np.random.default_rng(args.seed)
+        carry = tree_map(lambda a: a.expand((B,) + tuple(a.shape)).clone(),
+                         carry)
+        # perturb the initial joint configurations per robot
+        dq = torch.as_tensor(rng.normal(scale=0.01, size=(B, 12)),
+                             dtype=dtype, device=device)
+        sim = carry.sim_state
+        q = sim.q.clone()
+        q[:, 7:] += dq
+        carry = carry._replace(sim_state=sim._replace(q=q))
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out, logs = rollout(ctl, carry, n_ticks, f_ext_schedule=f_ext,
+                        terrain=terrain, perfect_estimator=args.perfect)
+    sync()
+    return out, logs, time.perf_counter() - t0
+
+
+def single_summary(cfg, args, logs, wall: float) -> int:
+    """qrw_tpu's summary lines of the single-robot mode; returns the
+    exit code (1 if a robot latched its security stop)."""
+    import numpy as np
+
+    n_runs = args.batch or 1
+    sim_s = cfg.N_SIMULATION * cfg.dt_wbc
+    print(f"rollout done: {wall:.2f}s wall for {n_runs} x {sim_s:.1f}s sim "
+          f"({n_runs * sim_s / wall:.1f}x realtime aggregate)")
+    bp = logs.base_pos.cpu().numpy()
+    err = logs.error.cpu().numpy()
+    ec = logs.error_code.cpu().numpy()
+    finite = bool(np.isfinite(bp).all())
+    if args.batch:
+        n_err = int(err[:, -1].sum())
+        codes = np.unique(ec[err > 0]) if n_err else "[]"
+        print(f"final height mean={bp[:, -1, 2].mean():.4f} "
+              f"min={bp[:, -1, 2].min():.4f}; errors {n_err}/{n_runs} "
+              f"(codes {codes}){'' if finite else ' NON-FINITE'}")
+        return 0 if finite and not n_err else 1
+    print(f"final pos [{bp[-1, 0]:.3f} {bp[-1, 1]:.3f} {bp[-1, 2]:.3f}]"
+          f" error={bool(err[-1])} code={int(ec[-1])}"
+          f"{'' if finite else ' NON-FINITE'}")
+    return 0 if finite and not err[-1] else 1
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    fleets = bool(args.fleet or args.hetero)
     unported = [name for name, on in [
-        ("--batch", args.batch), ("--fleet-mpc", args.fleet_mpc),
-        ("--host-loop", args.host_loop),
+        ("--fleet-mpc", args.fleet_mpc), ("--host-loop", args.host_loop),
         ("--sweep", args.sweep), ("--estimator-demo", args.estimator_demo),
-        ("--kf", args.kf), ("--ddp", args.ddp), ("--bumpy", args.bumpy),
-        ("--mesh", args.mesh), ("--f64", args.f64), ("--cpu", args.cpu),
-        ("--envID", args.envID not in (None, 0))] if on]
-    if not (args.fleet or args.hetero):
-        unported.append("single-robot rollout (no --fleet or --hetero)")
+        ("--kf", args.kf), ("--ddp", args.ddp), ("--mesh", args.mesh),
+        ("--clone", args.clone), ("--gamepad", args.gamepad),
+        ("--realtime", args.realtime), ("--save", args.save is not None),
+        ("--plot", args.plot is not None),
+        ("--batch with --fleet or --hetero", fleets and args.batch),
+        ("--bumpy with --fleet or --hetero", fleets and args.bumpy),
+        ("--envID with --fleet or --hetero",
+         fleets and args.envID not in (None, 0))] if on]
     if unported:
         print(f"not yet ported: {', '.join(unported)}", file=sys.stderr)
         return 2
 
     import numpy as np
+    import torch
 
     from qrw_tpu_torch.config import load_config
     overrides = {}
@@ -167,37 +290,50 @@ def main(argv=None) -> int:
         overrides["velID"] = args.velID
     if args.ticks is not None:
         overrides["N_SIMULATION"] = args.ticks
+    if args.envID is not None:
+        overrides["envID"] = args.envID
+    if args.bumpy:
+        overrides["use_flat_plane"] = False
     cfg = load_config(args.config, **overrides)
+    device = "cpu" if args.cpu else args.device
+    dtype = torch.float64 if args.f64 else torch.float32
+    if not fleets:
+        _, logs, wall = run_single(cfg, args, device, dtype)
+        return single_summary(cfg, args, logs, wall)
     n_cycles = max(1, cfg.N_SIMULATION // cfg.k_mpc)
     n_ticks = n_cycles * cfg.k_mpc
     if args.hetero:
         B = (max(args.hetero, 3 * TILE) // TILE) * TILE
         rescue = rescue_capacity(args.rescue, B)
         carry, cyc, meta, wall, first = run_hetero(
-            cfg, B, TILE, args.seed, args.device, n_cycles, rescue)
+            cfg, B, TILE, args.seed, device, n_cycles, rescue)
         s = hetero_summary(carry, cyc, meta, TILE)
         per_gait = " ".join(f"{g} {v:.2f}" for g, v in s["per_gait"].items())
+        conv_gait = " ".join(f"{g} {v:.4f}"
+                             for g, v in s["conv_per_gait"].items())
         per_ter = " ".join(f"{t} {v:.2f}"
                            for t, v in s["per_terrain"].items())
+        cal = ("calibrated from the shakedown capture"
+               if torch.device(device).type != "cpu" else
+               "nominal on the CPU")
         print(f"hetero fleet: {B} robots x {n_ticks} ticks in {wall:.2f}s "
-              f"on {args.device} ({B * n_ticks / wall:.0f} ticks/s; first "
-              f"run {first:.1f}s); MPC conv {s['conv']:.4f} (rescue cap "
-              f"{rescue}); upright {s['upright']:.3f} [{per_gait} | "
-              f"{per_ter}]; bounding's metric uncalibrated (no shakedown "
-              f"capture); errors {s['latched']}/{B}"
-              f"{'' if s['finite'] else ' NON-FINITE'}")
+              f"on {device} ({B * n_ticks / wall:.0f} ticks/s; first "
+              f"run {first:.1f}s); MPC conv {s['conv']:.4f} [{conv_gait}] "
+              f"(rescue cap {rescue}; bounding's metric {cal}); upright "
+              f"{s['upright']:.3f} [{per_gait} | {per_ter}]; errors "
+              f"{s['latched']}/{B}{'' if s['finite'] else ' NON-FINITE'}")
         return 0 if s["finite"] and not s["latched"] else 1
     B = max(TILE, (args.fleet // TILE) * TILE)
     rescue = rescue_capacity(args.rescue, B)
     carry, logs, cyc, wall, first = run_fleet(
-        cfg, B, TILE, args.seed, args.device, n_cycles, rescue,
+        cfg, B, TILE, args.seed, device, n_cycles, rescue,
         args.perfect)
     h = logs.base_pos[:, :, 2].cpu().numpy()
     err = logs.error.cpu().numpy()
     conv = cyc.converged.cpu().numpy()
     fired = int((cyc.rescued > 0).sum())
     print(f"fleet: {B} robots x {n_ticks} ticks in {wall:.2f}s on "
-          f"{args.device} ({B * n_ticks / wall:.0f} ticks/s aggregate, "
+          f"{device} ({B * n_ticks / wall:.0f} ticks/s aggregate, "
           f"{B * n_cycles / wall:.0f} in-loop MPC solves/s; first run "
           f"{first:.1f}s; {'perfect' if args.perfect else 'real'} "
           f"estimator); MPC conv {conv.mean():.4f} (rescue cap {rescue}, "

@@ -401,3 +401,19 @@ def hetero_v_ref_schedule(cfg: Config, velID: np.ndarray, n_ticks: int,
     lut = {vid: i for i, vid in enumerate(uniq)}
     sel = torch.as_tensor([lut[int(v)] for v in velID])
     return stack[sel].permute(1, 0, 2).contiguous().to(device)
+
+
+def hetero_shakedown_capture(cfg: Config, gait: str, v_cruise: float = 0.4,
+                             n_ticks: int = 1200, device="cuda"
+                             ) -> np.ndarray:
+    """(C, N_gait, 12) footstep matrices captured from one single-robot
+    shakedown run of `gait` ramping to v_cruise (sim/rollout on
+    `device`): the calibration input of make_hetero_fleet for an
+    off-nominal gait."""
+    from qrw_tpu_torch.sim.rollout import make_rollout, rollout
+    ctl, carry = make_rollout(cfg, gait=gait, device=device)
+    t = np.arange(n_ticks)
+    sched = np.zeros((n_ticks, 6), np.float32)
+    sched[:, 0] = np.clip((t - 200) / 600.0, 0.0, 1.0) * v_cruise
+    _, logs = rollout(ctl, carry, n_ticks, v_ref_schedule=sched)
+    return logs.mpc_fsteps[::cfg.k_mpc].cpu().numpy()

@@ -39,8 +39,9 @@ from qrw_tpu_torch.core import wbc as twbc
 from qrw_tpu_torch.core import wbc_lane as twl
 from qrw_tpu_torch.core.estimator import DeviceData as TDevice
 from qrw_tpu_torch.ops import rbd_lane as trl
+from tests.torch_threads import single_thread
 
-torch.set_num_threads(1)
+single_thread()
 
 CFG = Config()
 TOL = 1e-8

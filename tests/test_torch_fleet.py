@@ -34,8 +34,9 @@ from qrw_tpu.sim import fleet as jfl
 from qrw_tpu_torch import convert
 from qrw_tpu_torch.core import mpc_lane as tml
 from qrw_tpu_torch.sim import fleet as tfl
+from tests.torch_threads import single_thread
 
-torch.set_num_threads(1)
+single_thread()
 
 CFG = Config()
 B = 4

@@ -4,10 +4,10 @@ Importing any qrw_tpu_torch module must import neither jax nor any
 module of the JAX package qrw_tpu (the port runs on a machine without
 them); its copies of qrw_tpu's configuration and robot model must equal
 the originals. Branches the port does not cover yet (Kalman estimator,
-the envID=1 projectiles, DDP MPC, other CLI modes) raise instead of
-taking another path,
-and a fleet asked for on CUDA raises on a host without a card instead of
-continuing on the CPU."""
+DDP MPC, other CLI modes) and the envID=1 spheres in the lane-major
+fleet step (qrw_tpu asserts there too) raise instead of taking another
+path, and a fleet or rollout asked for on CUDA raises on a host without
+a card instead of continuing on the CPU."""
 
 import dataclasses
 import os
@@ -20,8 +20,9 @@ import pytest
 import torch
 
 from qrw_tpu_torch.config import Config
+from tests.torch_threads import single_thread
 
-torch.set_num_threads(1)
+single_thread()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = Config()
@@ -73,19 +74,45 @@ def test_unported_branches_raise(branch):
         elif branch == "ddp":
             tc.init_state(tc.make_controller(CFG.replace(type_MPC=False)))
         elif branch == "terrain":
-            # terrain is ported; the stairs course's projectiles are not
+            # terrain and the stairs course's spheres are ported for the
+            # per-robot step; the lane-major fleet step takes no spheres
+            from qrw_tpu_torch.ops import rbd_lane
+            from qrw_tpu_torch.sim import physics_lane
             from qrw_tpu_torch.sim.terrain import make_terrain
             cfg = CFG.replace(envID=1)
-            physics.init_sim_state(cfg, terrain=make_terrain(cfg, device="cpu"))
+            ss = physics.init_sim_state(
+                cfg, terrain=make_terrain(cfg, device="cpu"))
+            assert ss.proj is not None
+            ss = physics.SimState(*[None if a is None else a[None]
+                                    for a in ss[:-1]],
+                                  proj=ss.proj)
+            z = torch.zeros((1, 12))
+            physics_lane.step_lane(cfg, rbd_lane.solo12_lane(), ss, z, z, z,
+                                   z, z)
         else:
-            tc.compute_post(ctl, None, None, 0, None, None, None, None)
+            # the per-robot WBC is ported (compute_post runs it without a
+            # precomputed result); the tick still raises on the DDP MPC
+            from qrw_tpu_torch.sim.fleet import _device_from_sim
+            cs = tc.init_state(ctl)
+            dev = _device_from_sim(physics.init_sim_state(CFG))
+            ddp = tc.make_controller(CFG.replace(type_MPC=False))
+            tc.compute(ddp, cs, dev, 0)
 
 
 def test_cli_unported_modes_exit():
+    """Modes of the JAX entry point the port does not have yet exit with
+    2; the single-robot mode (no mode flag) is ported and, asked for on
+    CUDA on a host without a card, raises instead of running on the
+    CPU."""
     from qrw_tpu_torch.runtime import main
-    assert main.main(["--bumpy"]) == 2
-    assert main.main(["--fleet", "128", "--envID", "1"]) == 2
-    assert main.main([]) == 2
+    for argv in (["--kf"], ["--save"], ["--plot"], ["--sweep"],
+                 ["--fleet-mpc", "64"], ["--bumpy", "--fleet", "128"],
+                 ["--fleet", "128", "--envID", "1"],
+                 ["--hetero", "384", "--batch", "2"]):
+        assert main.main(argv) == 2, argv
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main.main(["--ticks", "1"])
 
 
 def test_cli_rescue_defaults_to_the_jax_capacity(monkeypatch):

@@ -42,8 +42,9 @@ from qrw_tpu_torch import convert
 from qrw_tpu_torch.core import mpc as tmpc
 from qrw_tpu_torch.eval import kernel_profile
 from qrw_tpu_torch.ops import qp as tqp
+from tests.torch_threads import single_thread
 
-torch.set_num_threads(1)
+single_thread()
 
 CFG = Config()
 N = CFG.n_steps

@@ -20,8 +20,9 @@ from qrw_tpu.ops import rotations as jrot
 from qrw_tpu_torch.ops import rbd as trbd
 from qrw_tpu_torch.ops import rbd_lane as trl
 from qrw_tpu_torch.ops import rotations as trot
+from tests.torch_threads import single_thread
 
-torch.set_num_threads(1)
+single_thread()
 
 B = 5
 TOL = 1e-10

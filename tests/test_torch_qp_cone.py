@@ -32,8 +32,9 @@ from qrw_tpu_torch.core import mpc_lane as tml
 from qrw_tpu_torch.ops import qp as tqp
 from qrw_tpu_torch.ops import qp_pallas as tqpp
 from qrw_tpu_torch.ops import qp_phase as tqph
+from tests.torch_threads import single_thread
 
-torch.set_num_threads(1)
+single_thread()
 
 CFG = Config()
 N = CFG.n_steps

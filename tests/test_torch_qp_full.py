@@ -58,8 +58,9 @@ from qrw_tpu.ops import qp as jqp
 from qrw_tpu.ops import qp_pallas as jqpp
 from qrw_tpu_torch.ops import qp as tqp
 from qrw_tpu_torch.ops import qp_pallas as tqpp
+from tests.torch_threads import single_thread
 
-torch.set_num_threads(1)
+single_thread()
 
 CFG = Config()
 N = CFG.n_steps

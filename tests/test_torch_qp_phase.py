@@ -18,8 +18,9 @@ from qrw_tpu.ops import qp_phase as jqp
 from qrw_tpu_torch import convert
 from qrw_tpu_torch.core import mpc_lane as tml
 from qrw_tpu_torch.ops import qp_phase as tqp
+from tests.torch_threads import single_thread
 
-torch.set_num_threads(1)
+single_thread()
 
 CFG = Config()
 N = CFG.n_steps

@@ -25,8 +25,9 @@ from qrw_tpu_torch.ops import rbd_lane as trl
 from qrw_tpu_torch.sim import physics as tphys
 from qrw_tpu_torch.sim import physics_lane as tpl
 from qrw_tpu_torch.sim import terrain as tter
+from tests.torch_threads import single_thread
 
-torch.set_num_threads(1)
+single_thread()
 
 CFG = Config()
 B = 3
