@@ -16,6 +16,9 @@ Phases (any failure ends the run with a non-zero exit):
    stop_at_eps on. 2b: the same at cap 48 (n = 144, m = 240) on a
    phase-sorted batch of the heterogeneous fleet's union phase set
    (trot, walk, bounding), with the clusters the card holds at once.
+   2c: the same at cap 64 (n = 192, m = 320, tile 32, the only tile a
+   cap-64 block fits) on the trot -> static union set (201 classes:
+   parity_320 --switch static) at B = 1024.
 3. Kernel K2 (qrw_tpu_torch/csrc/qp_admm.cu) against its plain version
    on the card, on rescue problems assembled as
    core/mpc.solve_mpc_batch_reduced assembles them from the same phase
@@ -75,6 +78,21 @@ Phases (any failure ends the run with a non-zero exit):
    S3. One 20-tick rollout of 2 robots from one carry on the card and
    on the CPU through the port, float32 and float64, every log leaf
    compared with the CPU parity tests' tolerances.
+   E1. The solver parity tool, python -m qrw_tpu_torch.eval.parity_320,
+   in-process on the card: --cycles 32 (the trot), then --cycles 32
+   --switch static (the union phase set at cap 64); a cut in depth from
+   320 cycles, at the tool's own width (B = 1, N = 16). Each run's JSON
+   is printed; relaxed conv >= 0.95, the torque error under its budget,
+   every cycle matched to a phase class, K2 (cone variant, n = 192) and
+   K3 launched at least once a warm cycle, K1 at cap 32 (trot) or only
+   at cap 64 (switch).
+   E2. The CLI's --fleet-mpc 4096 (tile 128, 10 warm cycles): solves/s
+   and conv >= 0.9, one K1 launch a cycle plus the cold solve.
+   E3. The CLI's --sweep on its full 9 x 5 grid for 600 ticks (cut from
+   1500): cells that succeeded, the largest vx error, no kernel launch.
+   E4. S3 with the 18-state Kalman estimator (cfg.kf_enabled), and the
+   card's ms a tick.
+   E5. The CLI's --estimator-demo --kf for 200 ticks: the metrics.
 7. Kernel K3 against its plain version on full-size problems (n = 192)
    of the entry point's build_batch at B = 1024, both variants: the
    resident one (qrw_tpu_torch/csrc/qp_ns_refine_tc.cu, 3xTF32 on the
@@ -138,6 +156,18 @@ HETERO_CONV_BAR = 0.85
 BATCH_B = 256                   # S2: the CLI's --batch at full width
 BATCH_TICKS = 300               # S2: 30 MPC cycles
 S3_TICKS = 20                   # S3: card against CPU
+CAP64_TILE = 32                 # K1's one tile at cap 64
+PARITY_CYCLES = 32              # E1: parity_320 cut from 320 cycles
+PARITY_ARGV = (["--cycles", str(PARITY_CYCLES)],
+               ["--cycles", str(PARITY_CYCLES), "--switch", "static"])
+# E1's bars: the JAX tool's own budget on the torque error (its JSON's
+# torque_budget_Nm), and the relaxed chain's convergence over a capture
+# (qrw_tpu's 320-cycle trot measured 1.0, PARITY.md, TPU v5e history)
+PARITY_CONV_BAR = 0.95
+FLEET_MPC_B = 4096              # E2: --fleet-mpc at the bench's width
+FLEET_MPC_CYCLES = 10           # the CLI's --fleet-cycles default
+SWEEP_TICKS = 600               # E3: --sweep cut from 1500 ticks
+DEMO_TICKS = 200                # E5: --estimator-demo cut from 3000 ticks
 RESCUE_R = (32, 128)            # K2 batch sizes: B // 32 at B = 1024, 4096
 RESCUE_SCHEDULE = [50, 150, 150, 100]
 RESCUE_CYCLES = (2, 1, 5)       # normal, crippled, recovery cycles
@@ -1221,14 +1251,17 @@ CARD_CPU_TOL32 = {"base_pos": 1e-5, "base_quat": 1e-5}
 CARD_CPU_TOL64 = 1e-9
 
 
-def check_card_vs_cpu(cfg, device):
+def check_card_vs_cpu(cfg, device, label="S3"):
     """S3: one 20-tick rollout of B = 2 robots from one carry, on the
     card and on the CPU through the port, in float32 and float64;
-    compared per log leaf with the CPU parity tests' tolerances."""
+    compared per log leaf with the CPU parity tests' tolerances. E4
+    runs it with cfg.kf_enabled (the Kalman estimator). Returns the
+    card's ms a tick per dtype."""
     from qrw_tpu_torch.convert import tree_map
     from qrw_tpu_torch.sim.rollout import make_rollout, rollout
 
     worst = {}
+    tick_ms = {}
     for dtype in (torch.float32, torch.float64):
         ctl, carry = make_rollout(cfg, dtype=dtype, device="cpu")
         carry = tree_map(lambda a: a.expand((2,) + tuple(a.shape)).clone(),
@@ -1239,9 +1272,13 @@ def check_card_vs_cpu(cfg, device):
         q[:, 7:] += dq
         carry = carry._replace(sim_state=carry.sim_state._replace(q=q))
         reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         _, card = rollout(ctl, tree_map(lambda a: a.to(device), carry),
                           S3_TICKS)
-        assert_no_kernel(f"S3 {dtype}")
+        torch.cuda.synchronize()
+        tick_ms[str(dtype)[6:]] = 1e3 * (time.perf_counter() - t0) / S3_TICKS
+        assert_no_kernel(f"{label} {dtype}")
         _, cpu = rollout(ctl, carry, S3_TICKS)
         f32 = dtype == torch.float32
         for name, g, w in zip(cpu._fields, card, cpu):
@@ -1258,9 +1295,158 @@ def check_card_vs_cpu(cfg, device):
             worst[(str(dtype)[6:], name)] = (err, tol)
             assert err <= tol, f"{name} ({dtype}): {err:.3g} of scale > {tol}"
     top = sorted(worst.items(), key=lambda kv: -kv[1][0] / kv[1][1])[:4]
-    log(f"S3 card vs CPU, B = 2, {S3_TICKS} ticks, every log leaf: worst "
+    log(f"{label} card vs CPU{' (Kalman estimator)' if cfg.kf_enabled else ''}"
+        f", B = 2, {S3_TICKS} ticks, every log leaf: worst "
         "(error / tolerance, of scale) " + "; ".join(
-            f"{d} {n} {e:.3g}/{t:g}" for (d, n), (e, t) in top))
+            f"{d} {n} {e:.3g}/{t:g}" for (d, n), (e, t) in top)
+        + "; card ms a tick (the first run of the process included) "
+        + ", ".join(f"{d} {v:.2f}" for d, v in tick_ms.items()))
+    return tick_ms
+
+
+# ----------------------------------------------------------------------
+# The evaluation tools (parity_320, --fleet-mpc, --sweep, the Kalman
+# estimator, --estimator-demo)
+# ----------------------------------------------------------------------
+
+class Recorder:
+    """Wraps `module.name` while active and keeps what each call
+    returned, so that a phase can drive the CLI's own entry point and
+    still read its results."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.out = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **k):
+            r = self.orig(*a, **k)
+            self.out.append(r)
+            return r
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def run_parity(cfg, device):
+    """E1: python -m qrw_tpu_torch.eval.parity_320 in-process, on the
+    card, at PARITY_CYCLES cycles: the trot, then the trot switching to
+    the static gait at mid-capture (the union phase set at cap 64).
+    Each run's JSON is printed (by the tool) and held to its bars; the
+    relaxed chain launches K2 and K3 in every warm cycle, the phase
+    solves K1 (cap 32 for the trot, cap 64 for the switch). Returns
+    ({label: JSON}, {label: Counts}, {label: wall seconds})."""
+    from qrw_tpu_torch.eval import parity_320
+
+    outs, counts, walls = {}, {}, {}
+    for argv in PARITY_ARGV:
+        label = "switch" if "--switch" in argv else "trot"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = parity_320.main(argv + ([] if device == "cuda" else ["--cpu"]))
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        n = read_counts()
+        outs[label], counts[label] = out, n
+        warm = PARITY_CYCLES - 1
+        log(f"E1 parity_320 {' '.join(argv)} on the card in "
+            f"{walls[label]:.1f} s: relaxed conv "
+            f"{out['relaxed_conv_rate']:.4f}, torque err max "
+            f"{out['torque_err_max_Nm_relaxed']:.4g} N m (budget "
+            f"{out['torque_budget_Nm']}), phase match "
+            f"{out['phase_match_rate']:.4f}, phase conv cold "
+            f"{out['phase_conv_rate']:.4f} warm "
+            f"{out['phase_warm_conv_rate']:.4f}, {out['n_phase_classes']} "
+            f"classes; launches K1 {n.k1} by cap {n.k1_caps}, K2 {n.k2} "
+            f"(cone by n {n.k2_cone}, dense {n.k2_dense}), K3 {n.k3} "
+            f"(general {n.k3_general}) for {warm} warm cycles")
+        assert out["relaxed_conv_rate"] >= PARITY_CONV_BAR, out
+        assert out["torque_err_max_Nm_relaxed"] < out["torque_budget_Nm"]
+        assert out["phase_match_rate"] == 1.0, out["phase_match_rate"]
+        assert n.k2_cone.get(192, 0) >= warm and n.k2_dense == 0, n
+        assert n.k3 >= warm and n.k3_general == 0, n
+        want_cap = 64 if label == "switch" else 32
+        assert n.k1 >= 1 and set(n.k1_caps) == {want_cap}, n
+    return outs, counts, walls
+
+
+def run_fleet_mpc_path(cfg, device):
+    """E2: the CLI's --fleet-mpc 4096 (10 warm cycles): solves/s and
+    conv, one K1 launch a cycle plus the cold solve."""
+    from qrw_tpu_torch.runtime import main as cli
+
+    reset_counts()
+    with Recorder(cli, "run_fleet_mpc") as rec:
+        code = cli.main(["--fleet-mpc", str(FLEET_MPC_B), "--fleet-cycles",
+                         str(FLEET_MPC_CYCLES), "--device", device])
+    n = read_counts()
+    r, = rec.out
+    log(f"E2 --fleet-mpc {FLEET_MPC_B}: B solved {r['B']} at tile "
+        f"{r['tile']}, {r['solves_s']:.1f} solves/s "
+        f"({1e3 * r['s_per_cycle']:.3f} ms a warm cycle), conv "
+        f"{r['conv']:.4f} (cold {r['cold_conv']:.4f}); K1 launches {n.k1} "
+        f"by cap {n.k1_caps}")
+    assert code == 0 and r["B"] == FLEET_MPC_B
+    assert r["conv"] >= CONV_BAR, r
+    assert n.k1 == FLEET_MPC_CYCLES + 1 and n.k1_caps == {32: n.k1}, n
+    assert n.k2 == n.k3 == 0, n
+    return r
+
+
+def run_sweep_path(cfg, device):
+    """E3: the CLI's --sweep on its full 9 x 5 grid, SWEEP_TICKS ticks:
+    cells that succeeded and the largest vx error; no kernel launch (the
+    per-robot solvers of the single-robot loop, as in qrw_tpu)."""
+    from qrw_tpu_torch.eval import speed_sweep
+    from qrw_tpu_torch.runtime import main as cli
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Recorder(speed_sweep, "run_sweep") as rec:
+        code = cli.main(["--sweep", "--ticks", str(SWEEP_TICKS),
+                         "--device", device])
+    wall = time.perf_counter() - t0
+    res, = rec.out
+    assert_no_kernel("E3 --sweep")
+    n_ok = int(res.success.sum())
+    log(f"E3 --sweep {res.success.shape[0]} x {res.success.shape[1]} cells "
+        f"x {SWEEP_TICKS} ticks in {wall:.1f} s "
+        f"({res.success.size * SWEEP_TICKS / wall:.1f} robot-ticks/s): "
+        f"{n_ok}/{res.success.size} succeeded; max vx err "
+        f"{res.vx_err.max():.4f} m/s; success by vx "
+        f"{res.success.all(axis=1).astype(int).tolist()}")
+    assert code == 0 and res.success.shape == (9, 5)
+    assert np.isfinite(res.vx_err).all() and np.isfinite(res.h_err).all()
+    assert res.success[0, res.success.shape[1] // 2], "standing cell fell"
+    return wall, n_ok, float(res.vx_err.max())
+
+
+def run_estimator_demo(cfg, device):
+    """E5: the CLI's --estimator-demo --kf on the card (DEMO_TICKS ticks
+    standing still, float32 as the CLI runs it): the metrics."""
+    from qrw_tpu_torch.eval import estimator_eval
+    from qrw_tpu_torch.runtime import main as cli
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Recorder(estimator_eval, "run_demo") as rec:
+        code = cli.main(["--estimator-demo", "--kf", "--ticks",
+                         str(DEMO_TICKS), "--device", device])
+    wall = time.perf_counter() - t0
+    m, = rec.out
+    assert_no_kernel("E5 --estimator-demo --kf")
+    log(f"E5 --estimator-demo --kf, {DEMO_TICKS} ticks in {wall:.1f} s "
+        f"({1e3 * wall / DEMO_TICKS:.1f} ms a tick): metrics {m}")
+    assert code == 0 and all(np.isfinite(v) for v in m.values()), m
+    assert m["z_rmse"] < 0.05 and m["xy_drift"] < 0.05, m
+    return m, wall
 
 
 # ----------------------------------------------------------------------
@@ -1884,6 +2070,15 @@ def main() -> int:
     # ... and at the heterogeneous fleet's own B: 32 tiles, 15 resident
     err48, k48_ms, p48_ms, k48_bound, k48_geo = check_kernel(
         cfg, ps48, device, HETERO_B, TILE, phase_fs=ups)
+    # the trot -> static union set (parity_320 --switch static): cap 64
+    ups64 = ml.union_phase_fsteps(cfg, [
+        ml.gait_phase_fsteps(cfg, "trot"), ml.gait_phase_fsteps(cfg, "static"),
+        ml.transition_phase_fsteps(cfg, "trot", "static")])
+    ps64 = ml.build_phase_data(cfg, ups64, device=device)
+    assert ps64.cap == 64 and ups64.shape[0] == 201, (ps64.cap, ups64.shape)
+    err64, k64_ms, p64_ms, k64_bound, k64_geo = check_kernel(
+        cfg, ps64, device, B_KERNEL, CAP64_TILE, phase_fs=ups64)
+    del ps64
     err2, k2_ms, p2_ms, k2_bound, k2_variants = check_rescue_kernel(cfg,
                                                                     device)
     err144, k144_ms, p144_ms, k144_bound, k144_variants = \
@@ -1899,6 +2094,11 @@ def main() -> int:
     check_hetero_slice(cfg, device, calibration)
     run_batch_path(cfg, device)
     check_card_vs_cpu(cfg, device)
+    _, parity_counts, _ = run_parity(cfg, device)
+    run_fleet_mpc_path(cfg, device)
+    run_sweep_path(cfg, device)
+    check_card_vs_cpu(cfg.replace(kf_enabled=True), device, label="E4")
+    run_estimator_demo(cfg, device)
     err3, k3, k3_ns0 = check_ns_kernel(cfg, device)
     err4, k4_ms, p4_ms, k4_bound, k4_ref, k4_variants = check_full_kernel(
         cfg, device)
@@ -1927,6 +2127,14 @@ def main() -> int:
                              k48s_geo["clusters_resident"],
                          "sms": k48s_geo["sms"],
                          "excused": k48s_geo["excused"]}}, {
+        "name": "qp_phase_cap64", "route": "cuda",
+        "source": "qrw_tpu_torch/csrc/qp_phase.cu",
+        "replaces": "qrw_tpu/ops/qp_phase.py:233",
+        "launches": parity_counts["switch"].k1_caps.get(64, 0),
+        "max_abs_err": err64, "B": B_KERNEL, "tile": CAP64_TILE,
+        "ms": k64_ms[0], "plain_ms": p64_ms[0], "bound_ms": k64_bound[0],
+        "bound_by": k64_bound[1], "library_ms": None,
+        "share": k64_bound[0] / k64_ms[0], **k64_geo}, {
         "name": "qp_admm", "route": "cuda",
         "source": "qrw_tpu_torch/csrc/qp_admm.cu",
         "replaces": "qrw_tpu/ops/qp_pallas.py:55",

@@ -4,8 +4,9 @@ Port of qrw_tpu/core/estimator.py (complementary-filter cascade,
 per-contact-foot base velocity from kinematics, forward-geometry base
 position, adaptive IMU/FK trust schedule, output low-pass filters,
 perfect-estimator mode), batched over leading robot axes. The fleet
-injects the foot kinematics through `fk=`. The 18-state Kalman variant
-is not ported yet: cfg.kf_enabled raises NotImplementedError.
+injects the foot kinematics through `fk=`. With cfg.kf_enabled the
+18-state Kalman filter (core/kalman.kf18_step) takes the complementary
+filters' place, and their states are carried unchanged.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from qrw_tpu_torch.config import Config
-from qrw_tpu_torch.core.kalman import KF18State, kf18_init
+from qrw_tpu_torch.core.kalman import KF18State, kf18_init, kf18_step
 from qrw_tpu_torch.ops import rbd
 from qrw_tpu_torch.ops.rotations import quat_to_rot, quat_to_rpy, rpy_to_quat
 
@@ -81,9 +82,6 @@ def run_filter(cfg: Config, model: rbd.TorchModel, state: EstimatorState,
     gait_current (..., N_gait, 4); goals (..., 3, 4) foot targets;
     fk: optional precomputed (pos (..., 4, 3), vel (..., 4, 3)) fixed-
     base foot kinematics at (device.q_mes, device.v_mes)."""
-    if cfg.kf_enabled:
-        raise NotImplementedError(
-            "the 18-state Kalman estimator is not ported yet")
     dtype = device.q_mes.dtype
     dev = device.q_mes.device
 
@@ -162,19 +160,29 @@ def run_filter(cfg: Config, model: rbd.TorchModel, state: EstimatorState,
         return (M @ v[..., None])[..., 0]
 
     o_acc = mv(oRb, device.base_lin_acc)
-    i_fk_vel = fk_lin_vel + cross
-    oi_fk_vel = mv(oRb, i_fk_vel)
-    hp_vel = alpha * (state.hp_vel + o_acc * cfg.dt_wbc)
-    lp_vel = alpha * state.lp_vel + (1.0 - alpha) * oi_fk_vel
-    oi_filt_vel = hp_vel + lp_vel
-    b_filt_vel = mv(oRb.transpose(-1, -2), oi_filt_vel) - cross
-    ob_filt_vel = mv(oRb, b_filt_vel)
+    if cfg.kf_enabled:
+        # the 18-state Kalman filter
+        kf, filt_lin_pos, b_filt_vel = kf18_step(
+            cfg, state.kf, oRb, o_acc, fk_pos, feet_status,
+            device.base_ang_vel)
+        hp_vel, lp_vel = state.hp_vel, state.lp_vel
+        hp_pos, lp_pos = state.hp_pos, state.lp_pos
+    else:
+        # the complementary filter cascade
+        i_fk_vel = fk_lin_vel + cross
+        oi_fk_vel = mv(oRb, i_fk_vel)
+        hp_vel = alpha * (state.hp_vel + o_acc * cfg.dt_wbc)
+        lp_vel = alpha * state.lp_vel + (1.0 - alpha) * oi_fk_vel
+        oi_filt_vel = hp_vel + lp_vel
+        b_filt_vel = mv(oRb.transpose(-1, -2), oi_filt_vel) - cross
+        ob_filt_vel = mv(oRb, b_filt_vel)
 
-    a_pos = torch.as_tensor(cfg.alpha_pos, dtype=dtype, device=dev)
-    hp_pos = a_pos * (state.hp_pos + ob_filt_vel * cfg.dt_wbc)
-    lp_pos = (a_pos * state.lp_pos
-              + (1.0 - a_pos) * (fk_xyz + xyz_mean_feet))
-    filt_lin_pos = hp_pos + lp_pos
+        a_pos = torch.as_tensor(cfg.alpha_pos, dtype=dtype, device=dev)
+        hp_pos = a_pos * (state.hp_pos + ob_filt_vel * cfg.dt_wbc)
+        lp_pos = (a_pos * state.lp_pos
+                  + (1.0 - a_pos) * (fk_xyz + xyz_mean_feet))
+        filt_lin_pos = hp_pos + lp_pos
+        kf = state.kf
 
     alpha_v = filter_alpha(cfg.dt_wbc, cfg.fc_vel)
     alpha_secu = filter_alpha(cfg.dt_wbc, cfg.fc_secu)
@@ -193,6 +201,6 @@ def run_filter(cfg: Config, model: rbd.TorchModel, state: EstimatorState,
         yaw_offset=yaw_offset, k_since_contact=ksc,
         hp_vel=hp_vel, lp_vel=lp_vel, hp_pos=hp_pos, lp_pos=lp_pos,
         fk_lin_vel=fk_lin_vel, fk_xyz=fk_xyz, xyz_mean_feet=xyz_mean_feet,
-        v_filt=v_filt, v_secu=v_secu, kf=state.kf)
+        v_filt=v_filt, v_secu=v_secu, kf=kf)
     return EstimatorOutput(q_filt=q_filt, v_filt=v_filt, v_secu=v_secu,
                            rpy=rpy, state=new_state)

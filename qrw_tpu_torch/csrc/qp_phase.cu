@@ -70,10 +70,13 @@ struct Params {
   int B, tile, n_iters, check_every, stop_at_eps, n_phases;
 };
 
-// The kernel is compiled for two caps (stance slots): 32 = 2N at N = 16
-// (trot, pacing, bounding) and 48 = 3N (walk's 3-stance rows, and any
-// phase set that holds walk). Problems a thread (PPT), threads a slot
-// (PH) and threads a block (NT = CAP PH: 8, 12 or 6 warps) for PB
+// The kernel is compiled for three caps (stance slots): 32 = 2N at N = 16
+// (trot, pacing, bounding), 48 = 3N (walk's 3-stance rows, and any phase
+// set that holds walk) and 64 = 4N (phase sets with 4-stance rows: the
+// static gait and the mixed windows of a switch to it), the last at 4
+// problems a block only (tile 32: 224,896 B of shared memory a block;
+// tile 64 would need 267,264 B). Problems a thread (PPT), threads a slot
+// (PH) and threads a block (NT = CAP PH: 8, 12, 6 or 8 warps) for PB
 // problems a block, and the shape constants of the cap.
 template <int CAP_, int PB>
 struct Geo {
@@ -447,9 +450,10 @@ qp_phase_kernel(Params p, const float* __restrict__ Qg,
 // Problems a block for a tile, or 0 where no block shape takes it. The
 // wrapper (ops/qp_phase.py::launch_geometry) refuses a block whose shared
 // memory exceeds what a block can have, so no kernel is compiled for one
-// (cap 48 at 32 problems): the dispatch below returns -1 there.
+// (cap 48 at 32 problems, cap 64 above 4): the dispatch below returns -1
+// there.
 int block_problems(int cap, int tile) {
-  if ((cap != 32 && cap != 48) || tile % CLUSTER) return 0;
+  if ((cap != 32 && cap != 48 && cap != 64) || tile % CLUSTER) return 0;
   const int pb = tile / CLUSTER;
   return (pb == 4 || pb == 8 || pb == 16 || pb == 32) ? pb : 0;
 }
@@ -549,6 +553,7 @@ int qrw_qp_phase_max_active_clusters(int cap, int tile, int B,
     case 8: return prepare<48, 8>(B, tile, 0, clusters);
     case 16: return prepare<48, 16>(B, tile, 0, clusters);
   }
+  if (cap == 64 && pb == 4) return prepare<64, 4>(B, tile, 0, clusters);
   return -1;
 }
 
@@ -588,6 +593,7 @@ int qrw_qp_phase_solve(const float* q, const float* blst, const float* x0,
     case 8: return QRW_LAUNCH(48, 8);
     case 16: return QRW_LAUNCH(48, 16);
   }
+  if (cap == 64 && pb == 4) return QRW_LAUNCH(64, 4);
 #undef QRW_LAUNCH
   return -1;
 }

@@ -308,10 +308,13 @@ def _cfunc():
 
 # The kernel spreads a tile over a cluster of CLUSTER thread blocks, each
 # holding tile // CLUSTER problems; it is compiled for these block sizes
-# and for two caps of stance slots (csrc/qp_phase.cu): 32 (trot, pacing,
-# bounding) and 48 (walk's 3-stance rows, and any phase set holding walk).
+# and for three caps of stance slots (csrc/qp_phase.cu): 32 (trot,
+# pacing, bounding), 48 (walk's 3-stance rows, and any phase set holding
+# walk) and 64 (4-stance rows: the static gait and the mixed windows of a
+# switch to it), the last at tile 32 only: a larger tile's block does not
+# fit in shared memory (launch_geometry).
 CLUSTER = 8
-KERNEL_CAP = (32, 48)
+KERNEL_CAP = (32, 48, 64)
 BLOCK_PROBLEMS = (4, 8, 16, 32)
 # A block's dynamic shared memory can be at most 227 KiB on the H100
 # (cudaDevAttrMaxSharedMemoryPerBlockOptin). This is the one place the
@@ -334,9 +337,9 @@ def launch_geometry(cap: int, tile: int, B: int) -> LaunchGeometry:
     of `tile`: CLUSTER blocks a tile, tile // CLUSTER problems a block,
     one thread per (slot, problem) up to 8 problems, cap * 8 threads a
     block above. Raises ValueError on a shape the kernel does not take
-    (solve_plain takes any): a cap other than 32 or 48, a tile whose
+    (solve_plain takes any): a cap other than 32, 48 or 64, a tile whose
     block is not 4-32 problems, or a block whose shared memory exceeds
-    MAX_SMEM_BYTES (cap 48 at tile 256)."""
+    MAX_SMEM_BYTES (cap 48 at tile 256, cap 64 above tile 32)."""
     if cap not in KERNEL_CAP:
         raise ValueError(f"qp_phase kernel: cap {cap}, the kernel is "
                          f"compiled for caps {KERNEL_CAP}")

@@ -7,13 +7,16 @@ controller with its per-robot MPC and WBC against the simulator), or
 joint angles by np.random.default_rng(seed).normal(scale=0.01) exactly
 as the JAX entry point draws them; `--gait`, `--velID`, `--envID`
 (1: the stairs course with its thrown spheres), `--bumpy`, `--perfect`,
-`--f64` and `--ticks` select the scenario, as there.
+`--kf` (the 18-state Kalman estimator), `--f64` and `--ticks` select
+the scenario, as there. `--save [PATH]` writes the logs (robot 0 of a
+batch) to an npz that either package loads, and `--plot [PREFIX]` saves
+the 13 figures of utils/logger.plot_all.
 
 `--fleet` is the trot fleet on flat ground, with the complementary-
-filter estimator unless `--perfect` is given. `--hetero` is the
-heterogeneous fleet: gaits {trot, walk, bounding} per 128-robot tile,
-velocity profiles velID 0-6 and terrains {flat, bumpy, stairs} per
-robot, the real estimator in the loop; on the card bounding's phase
+filter estimator unless `--perfect` (or `--kf`) is given. `--hetero` is
+the heterogeneous fleet: gaits {trot, walk, bounding} per 128-robot
+tile, velocity profiles velID 0-6 and terrains {flat, bumpy, stairs}
+per robot, the real estimator in the loop; on the card bounding's phase
 classes are calibrated from a single-robot shakedown capture first, as
 the JAX entry point does on an accelerator. Every 50 Hz cycle the
 fleets solve their MPC problems in ONE batched phase-solver launch (the
@@ -23,15 +26,29 @@ capacity defaults to max(4, B // 32) lanes as in the JAX entry point.
 Both fleets run once (the kernel build and warm-up) and then time a
 second run from the same initial carry.
 
+`--fleet-mpc B` is the MPC-fleet service demo: B trot problems sorted
+over the 16 gait offsets, solved cold and then warm-cycled through K1
+(tiles of 128 on the card, 4 on the CPU, as the JAX entry point's CPU
+tile), printing solves/s and convergence. `--sweep` runs the
+velocity-envelope sweep (eval/speed_sweep: a 9 x 5 grid of (vx, wyaw)
+commands as one batched rollout), `--estimator-demo` the estimator-only
+evaluation (eval/estimator_eval.run_demo).
+
     python -m qrw_tpu_torch.runtime.main
     python -m qrw_tpu_torch.runtime.main --batch 256 --ticks 500
     python -m qrw_tpu_torch.runtime.main --cpu --ticks 20 --batch 2
+    python -m qrw_tpu_torch.runtime.main --ticks 500 --kf --save run.npz
     python -m qrw_tpu_torch.runtime.main --fleet 1024
     python -m qrw_tpu_torch.runtime.main --hetero 4096
+    python -m qrw_tpu_torch.runtime.main --fleet-mpc 4096
+    python -m qrw_tpu_torch.runtime.main --sweep --ticks 1500
+    python -m qrw_tpu_torch.runtime.main --estimator-demo --kf --ticks 500
 
 Everything runs on the card (`--device cuda`) unless `--cpu` or
-`--device cpu` asks for the CPU. Every other mode of the JAX entry
-point exits with "not yet ported".
+`--device cpu` asks for the CPU. The modes of the JAX entry point that
+are not ported yet (`--ddp`, `--host-loop`, `--mesh`, `--clone`,
+`--gamepad`, `--realtime`, and the fleets with `--batch`, `--bumpy` or
+`--envID`) exit with "not yet ported".
 """
 
 from __future__ import annotations
@@ -41,6 +58,7 @@ import sys
 import time
 
 TILE = 128      # robots per solver tile: the unit of the early exit
+CPU_TILE = 4    # --fleet-mpc's tile on the CPU (the JAX entry point's)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -81,13 +99,29 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="single-robot mode: 0 flat, 1 the stairs course")
     p.add_argument("--bumpy", action="store_true",
                    help="single-robot mode: procedural bumpy terrain")
+    p.add_argument("--kf", action="store_true",
+                   help="use the 18-state Kalman estimator")
+    p.add_argument("--save", nargs="?", const="", default=None,
+                   metavar="PATH", help="single-robot mode: save the logs "
+                                        "to .npz (robot 0 of a batch)")
+    p.add_argument("--plot", nargs="?", const="qrw_run", default=None,
+                   metavar="PREFIX",
+                   help="single-robot mode: save the plot_all figures as "
+                        "PNGs (with --sweep: the envelope)")
+    p.add_argument("--sweep", action="store_true",
+                   help="run the batched velocity-envelope sweep and exit")
+    p.add_argument("--estimator-demo", action="store_true",
+                   help="estimator-only evaluation run and exit")
+    p.add_argument("--fleet-mpc", type=int, default=0, metavar="B",
+                   help="MPC-fleet service demo: solve B phase-sorted trot "
+                        "problems per 50 Hz cycle on the lane-major phase "
+                        "solver and report solves/s and convergence")
+    p.add_argument("--fleet-cycles", type=int, default=10,
+                   help="warm cycles for --fleet-mpc")
     # modes of the JAX entry point that the port does not have yet
-    p.add_argument("--fleet-mpc", type=int, default=0)
-    for flag in ("--host-loop", "--sweep", "--estimator-demo", "--kf",
-                 "--ddp", "--mesh", "--clone", "--gamepad", "--realtime"):
+    for flag in ("--host-loop", "--ddp", "--mesh", "--clone", "--gamepad",
+                 "--realtime"):
         p.add_argument(flag, action="store_true")
-    p.add_argument("--save", nargs="?", const="", default=None)
-    p.add_argument("--plot", nargs="?", const="qrw_run", default=None)
     return p
 
 
@@ -196,6 +230,63 @@ def hetero_summary(carry, cyc, meta, tile: int) -> dict:
         rescued=int(cyc.rescued.sum()))
 
 
+def run_fleet_mpc(cfg, batch: int, seed: int, device: str,
+                  n_cycles: int = 10) -> dict:
+    """The MPC-fleet service demo: `batch` trot problems sorted over the
+    gait's 16 offsets (whole tiles of one offset each; two offsets when
+    B is under 16 tiles), solved cold on ops/qp_phase at 300 iterations,
+    then warm-cycled `n_cycles` times on a 1 mm moving state, as the JAX
+    entry point does. The tile is 4 on the CPU (the JAX entry point's CPU
+    tile) and 128 on the card (K1 takes tiles 32-256 at cap 32; without
+    stop_at_eps the tile does not change the result). Returns the batch
+    actually solved (B rounded to whole tiles per offset), the tile,
+    solves/s and the mean warm conv."""
+    import numpy as np
+    import torch
+
+    from qrw_tpu_torch.core import mpc_lane as ml
+    from qrw_tpu_torch.sim.fleet import _check_device
+
+    cuda = torch.device(_check_device(device)).type == "cuda"
+    tile = TILE if cuda else CPU_TILE
+    P = cfg.n_steps
+    per = max(tile, (batch // (P * tile)) * tile)
+    phase_ids = list(range(P)) if batch >= P * tile else [0, P // 2]
+    B = per * len(phase_ids)
+    rng = np.random.default_rng(seed)
+    phase_fs = ml.trot_phase_fsteps(cfg)
+    xr = np.zeros((12, cfg.n_steps + 1, B), np.float32)
+    xr[2] = cfg.h_ref
+    xr[:, 0, :] += rng.normal(scale=0.01, size=(12, B))
+    xr[6, 1:, :] = rng.uniform(0, 1.0, size=B)
+    fs = np.zeros((cfg.N_gait, 12, B), np.float32)
+    for i, p_id in enumerate(phase_ids):
+        fs[:, :, i * per:(i + 1) * per] = phase_fs[p_id][:, :, None]
+    phases_of = np.repeat(phase_ids, per // tile)
+    ps = ml.build_phase_data(cfg, phase_fs, device=device)
+    xrt = torch.as_tensor(xr, device=device)
+    fst = torch.as_tensor(fs, device=device)
+    _, st, sol = ml.solve_mpc_batch_phase(cfg, xrt, fst, ps, phases_of,
+                                          n_iters=300, tile=tile)
+    cold = float(sol.converged.float().mean())
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    convs = []
+    for _ in range(n_cycles):
+        xrt = xrt.clone()
+        xrt[:, 0, :] += 0.001
+        _, st, sol = ml.solve_mpc_batch_phase(cfg, xrt, fst, ps, phases_of,
+                                              state=st, n_iters=300,
+                                              tile=tile)
+        convs.append(sol.converged.float().mean())
+    sync()
+    dt = (time.perf_counter() - t0) / n_cycles
+    return dict(B=B, tile=tile, solves_s=B / dt, s_per_cycle=dt,
+                conv=float(torch.stack(convs).mean()), cold_conv=cold,
+                n_cycles=n_cycles)
+
+
 def run_single(cfg, args, device: str, dtype):
     """The single-robot closed loop (or --batch robots): returns (final
     carry, logs, wall seconds)."""
@@ -263,16 +354,28 @@ def single_summary(cfg, args, logs, wall: float) -> int:
     return 0 if finite and not err[-1] else 1
 
 
+def save_and_plot(cfg, args, logs) -> None:
+    """--save / --plot of the single-robot mode (robot 0 of a batch)."""
+    from qrw_tpu_torch.convert import tree_map
+    from qrw_tpu_torch.utils import logger as qlog
+
+    one = tree_map(lambda a: a[0], logs) if args.batch else logs
+    if args.save is not None:
+        path = qlog.save_npz(one, args.save or None, cfg)
+        print(f"logs saved to {path}")
+    if args.plot is not None:
+        qlog.plot_all(qlog.log_to_dict(one, cfg), dt=cfg.dt_wbc, show=False,
+                      save_prefix=args.plot)
+        print(f"figures saved as {args.plot}_fig*.png")
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     fleets = bool(args.fleet or args.hetero)
     unported = [name for name, on in [
-        ("--fleet-mpc", args.fleet_mpc), ("--host-loop", args.host_loop),
-        ("--sweep", args.sweep), ("--estimator-demo", args.estimator_demo),
-        ("--kf", args.kf), ("--ddp", args.ddp), ("--mesh", args.mesh),
-        ("--clone", args.clone), ("--gamepad", args.gamepad),
-        ("--realtime", args.realtime), ("--save", args.save is not None),
-        ("--plot", args.plot is not None),
+        ("--host-loop", args.host_loop), ("--ddp", args.ddp),
+        ("--mesh", args.mesh), ("--clone", args.clone),
+        ("--gamepad", args.gamepad), ("--realtime", args.realtime),
         ("--batch with --fleet or --hetero", fleets and args.batch),
         ("--bumpy with --fleet or --hetero", fleets and args.bumpy),
         ("--envID with --fleet or --hetero",
@@ -290,6 +393,8 @@ def main(argv=None) -> int:
         overrides["velID"] = args.velID
     if args.ticks is not None:
         overrides["N_SIMULATION"] = args.ticks
+    if args.kf:
+        overrides["kf_enabled"] = True
     if args.envID is not None:
         overrides["envID"] = args.envID
     if args.bumpy:
@@ -297,9 +402,40 @@ def main(argv=None) -> int:
     cfg = load_config(args.config, **overrides)
     device = "cpu" if args.cpu else args.device
     dtype = torch.float64 if args.f64 else torch.float32
+    if args.fleet_mpc:
+        r = run_fleet_mpc(cfg, args.fleet_mpc, args.seed, device,
+                          args.fleet_cycles)
+        print(f"fleet MPC service: {r['B']} scenarios/cycle (tile "
+              f"{r['tile']}, on {device}), {r['solves_s']:.0f} solves/s, "
+              f"conv {r['conv']:.4f} (cold {r['cold_conv']:.4f}; "
+              f"{r['n_cycles']} warm cycles, synchronized per run)")
+        return 0
+    if args.sweep and not fleets:
+        from qrw_tpu_torch.eval.speed_sweep import plot_envelope, run_sweep
+        t0 = time.perf_counter()
+        res = run_sweep(cfg, n_ticks=cfg.N_SIMULATION, dtype=dtype,
+                        device=device)
+        print(f"sweep: {int(res.success.sum())}/{res.success.size} cells "
+              f"succeeded; max vx err {res.vx_err.max():.3f} m/s "
+              f"({cfg.N_SIMULATION} ticks in "
+              f"{time.perf_counter() - t0:.1f}s on {device})")
+        if args.plot is not None:
+            plot_envelope(res, show=False,
+                          save_path=args.plot + "_envelope.png")
+            print(f"envelope saved as {args.plot}_envelope.png")
+        return 0
+    if args.estimator_demo and not fleets:
+        from qrw_tpu_torch.eval.estimator_eval import run_demo
+        m = run_demo(cfg, n_ticks=cfg.N_SIMULATION, kf=args.kf, dtype=dtype,
+                     device=device)
+        print("estimator metrics:", {k: round(v, 5) for k, v in m.items()})
+        return 0
     if not fleets:
         _, logs, wall = run_single(cfg, args, device, dtype)
-        return single_summary(cfg, args, logs, wall)
+        code = single_summary(cfg, args, logs, wall)
+        if args.save is not None or args.plot is not None:
+            save_and_plot(cfg, args, logs)
+        return code
     n_cycles = max(1, cfg.N_SIMULATION // cfg.k_mpc)
     n_ticks = n_cycles * cfg.k_mpc
     if args.hetero:
@@ -332,11 +468,12 @@ def main(argv=None) -> int:
     err = logs.error.cpu().numpy()
     conv = cyc.converged.cpu().numpy()
     fired = int((cyc.rescued > 0).sum())
+    estimator = ("perfect" if args.perfect else
+                 "Kalman" if args.kf else "complementary")
     print(f"fleet: {B} robots x {n_ticks} ticks in {wall:.2f}s on "
           f"{device} ({B * n_ticks / wall:.0f} ticks/s aggregate, "
           f"{B * n_cycles / wall:.0f} in-loop MPC solves/s; first run "
-          f"{first:.1f}s; {'perfect' if args.perfect else 'real'} "
-          f"estimator); MPC conv {conv.mean():.4f} (rescue cap {rescue}, "
+          f"{first:.1f}s; {estimator} estimator); MPC conv {conv.mean():.4f} (rescue cap {rescue}, "
           f"fired in {fired} of {n_cycles} cycles); errors "
           f"{int(err[-1].sum())}/{B}; final height mean {h[-1].mean():.4f} "
           f"min {h[-1].min():.4f}"

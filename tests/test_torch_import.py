@@ -3,11 +3,11 @@
 Importing any qrw_tpu_torch module must import neither jax nor any
 module of the JAX package qrw_tpu (the port runs on a machine without
 them); its copies of qrw_tpu's configuration and robot model must equal
-the originals. Branches the port does not cover yet (Kalman estimator,
-DDP MPC, other CLI modes) and the envID=1 spheres in the lane-major
-fleet step (qrw_tpu asserts there too) raise instead of taking another
-path, and a fleet or rollout asked for on CUDA raises on a host without
-a card instead of continuing on the CPU."""
+the originals. Branches the port does not cover yet (DDP MPC, other CLI
+modes) and the envID=1 spheres in the lane-major fleet step (qrw_tpu
+asserts there too) raise instead of taking another path, and a fleet or
+rollout asked for on CUDA raises on a host without a card instead of
+continuing on the CPU."""
 
 import dataclasses
 import os
@@ -59,19 +59,13 @@ def test_make_fleet_cuda_raises_without_card():
         fleet.make_fleet(CFG, 128, None, device="cuda")
 
 
-@pytest.mark.parametrize("branch", ["kalman", "ddp", "terrain", "wbc"])
+@pytest.mark.parametrize("branch", ["ddp", "terrain", "wbc"])
 def test_unported_branches_raise(branch):
     from qrw_tpu_torch.core import controller as tc
     from qrw_tpu_torch.sim import physics
     ctl = tc.make_controller(CFG)
     with pytest.raises(NotImplementedError):
-        if branch == "kalman":
-            cfg = CFG.replace(kf_enabled=True)
-            cs = tc.init_state(tc.make_controller(cfg))
-            from qrw_tpu_torch.sim.fleet import _device_from_sim
-            dev = _device_from_sim(physics.init_sim_state(cfg))
-            tc.compute_pre(tc.make_controller(cfg), cs, dev, 0)
-        elif branch == "ddp":
+        if branch == "ddp":
             tc.init_state(tc.make_controller(CFG.replace(type_MPC=False)))
         elif branch == "terrain":
             # terrain and the stairs course's spheres are ported for the
@@ -101,18 +95,22 @@ def test_unported_branches_raise(branch):
 
 def test_cli_unported_modes_exit():
     """Modes of the JAX entry point the port does not have yet exit with
-    2; the single-robot mode (no mode flag) is ported and, asked for on
-    CUDA on a host without a card, raises instead of running on the
-    CPU."""
+    2; the single-robot mode (no mode flag) and the evaluation modes are
+    ported and, asked for on CUDA on a host without a card, raise
+    instead of running on the CPU."""
     from qrw_tpu_torch.runtime import main
-    for argv in (["--kf"], ["--save"], ["--plot"], ["--sweep"],
-                 ["--fleet-mpc", "64"], ["--bumpy", "--fleet", "128"],
+    for argv in (["--ddp"], ["--host-loop"], ["--mesh"], ["--clone"],
+                 ["--gamepad"], ["--realtime"], ["--sweep", "--mesh"],
+                 ["--bumpy", "--fleet", "128"],
                  ["--fleet", "128", "--envID", "1"],
                  ["--hetero", "384", "--batch", "2"]):
         assert main.main(argv) == 2, argv
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            main.main(["--ticks", "1"])
+        for argv in (["--ticks", "1"], ["--ticks", "1", "--kf"],
+                     ["--fleet-mpc", "64"], ["--sweep", "--ticks", "1"],
+                     ["--estimator-demo", "--ticks", "1"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                main.main(argv)
 
 
 def test_cli_rescue_defaults_to_the_jax_capacity(monkeypatch):
@@ -188,6 +186,16 @@ def test_stairs_asset_copy_equals_jax_package():
         want = f.read()
     with open(os.path.join(ROOT, "qrw_tpu_torch", "sim",
                            "bauzil_stairs_hf.npz"), "rb") as f:
+        assert f.read() == want
+
+
+def test_qp_oracle_copy_equals_tests_oracle():
+    """qrw_tpu_torch/eval/qp_oracle.py (parity_320's oracle) is a
+    byte-equal copy of tests/qp_oracle.py."""
+    with open(os.path.join(ROOT, "tests", "qp_oracle.py"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(ROOT, "qrw_tpu_torch", "eval",
+                           "qp_oracle.py"), "rb") as f:
         assert f.read() == want
 
 
