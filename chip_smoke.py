@@ -93,6 +93,33 @@ Phases (any failure ends the run with a non-zero exit):
    E4. S3 with the 18-state Kalman estimator (cfg.kf_enabled), and the
    card's ms a tick.
    E5. The CLI's --estimator-demo --kf for 200 ticks: the metrics.
+   D1-D6, the DDP MPC backends (ops/ilqr, core/mpc_ddp,
+   core/mpc_ddp_planner, eval/compare; plain PyTorch: each phase asserts
+   that it launched none of K1-K3, as in qrw_tpu, where they reach no
+   pl.pallas_call).
+   D1. bench.py::run_ddp_bench through the port: B = 1024 trot problems
+   of build_batch(cfg, B, default_rng(11)), one warm-started batched
+   DDP solve a cycle, 1 warm-up and 10 timed cycles: solves/s, ms a
+   solve, torch ops a solve (non-view ops: launches), the mean total fz
+   of the last cycle's first node within 2 N of qrw_tpu's value for the
+   cell (DDP_FZ_REF), all finite; a B = 8 slice cold and warm on the
+   card and on the CPU, float64 and float32 (DDP_TOL).
+   D2. The CLI's --ddp (type_MPC = False) through runtime.main, 100
+   ticks (cut from 400): ms a tick; final |h - h_ref| < 0.05 and no
+   latch (the JAX package's tests/test_mpc_ddp.py:175-187).
+   D3. The planner (mpc_planner) through runtime.main.run_single, 100
+   ticks, the same bars (tests/test_mpc_planner.py:97-109).
+   D4. The every-tick DDP (mpc_every_tick), 20 ticks (cut from the JAX
+   test's 300), one DDP solve a tick, the same bars
+   (tests/test_mpc_ddp.py:144-158).
+   D5. S3 for the DDP backend and for the planner, 11 ticks (cut from
+   20): card against CPU, every log leaf, the CPU parity tests' bars
+   (the plan in float64 at 1e-7 of scale: tests/test_torch_ddp_loop.py;
+   the planner run's every leaf, PLANNER_TOL64).
+   D6. eval/compare on the card: a float64 capture of 150 ticks (cut
+   from 400), the cycles from 10 on re-solved by both backends, cold
+   and warm in the loop: fz means within 2 N of mg/4 and
+   force_rmse_mean < 3 N (tests/test_aux.py:62-85).
 7. Kernel K3 against its plain version on full-size problems (n = 192)
    of the entry point's build_batch at B = 1024, both variants: the
    resident one (qrw_tpu_torch/csrc/qp_ns_refine_tc.cu, 3xTF32 on the
@@ -156,6 +183,41 @@ HETERO_CONV_BAR = 0.85
 BATCH_B = 256                   # S2: the CLI's --batch at full width
 BATCH_TICKS = 300               # S2: 30 MPC cycles
 S3_TICKS = 20                   # S3: card against CPU
+DDP_B = 1024                    # D1: bench.py::run_ddp_bench's batch
+DDP_CYCLES = 10                 # D1: its warm cycles (bench.py:499)
+DDP_SLICE_B = 8                 # D1: card against CPU
+# D1's mean total fz of the first node after the 11 cycles: qrw_tpu's
+# own value for this cell, 28.83 N (`python tests/torch_ddp_cell.py`,
+# float32 on the CPU; the port gives 28.831 N there). Not mg
+# (24.52 N): the cell's references ask for forward speeds up to 1 m/s,
+# and the traction that takes inside the inner friction cone needs
+# normal force. Bar: within 2 N of it.
+DDP_FZ_REF = 28.83
+# The DDP phases are host-bound (0.7-1.2 s a DDP solve on the card,
+# PERF.md §6), so their depth is cut to keep the script inside its time
+# limit:
+DDP_TICKS = 100                 # D2, D3: cut from the JAX tests' 400
+EVERY_TICK_TICKS = 20           # D4: cut from the JAX test's 300 ticks
+D5_TICKS = 11                   # D5: cut from S3's 20 (2 MPC solves)
+COMPARE_TICKS = 150             # D6: cut from tests/test_aux.py's 400 ...
+COMPARE_SKIP = 10               # ... compared from its cycle 10 on
+# D1's card-against-CPU bars on the B = 8 slice, as fractions of each
+# leaf's scale (plans and warm starts; costs): float64 plans at
+# 1e-8, costs at the CPU tests' 1e-9 (tests/test_torch_ddp.py: a
+# one-ulp accept flip moved a plan by 1.3e-8 of scale at most there);
+# float32 plans at the CPU tests' 1e-3 (measured there 3.0e-4), costs
+# at 1e-4: the first card run measured 1.04e-5 of scale on cost_trace
+# (NVIDIA H100 80GB HBM3, 700.00 W), where the two devices' float32
+# reductions let the line search take another alpha
+DDP_TOL = {torch.float64: (1e-8, 1e-9), torch.float32: (1e-3, 1e-4)}
+# the float64 bars of the card-against-CPU rollouts (D5): the DDP run's
+# plan at 1e-7 of scale, as in tests/test_torch_ddp_loop.py; the
+# planner's every leaf at 1e-7: its plan sets the swing feet's targets,
+# so a one-ulp accept flip of its iLQR reaches every leaf downstream
+# (the first card run measured 2.55e-9 of scale on feet_a_cmd; NVIDIA
+# H100 80GB HBM3, 700.00 W)
+DDP_PLAN_TOL64 = {"x_f_mpc": 1e-7}
+PLANNER_TOL64 = {"default": 1e-7}
 CAP64_TILE = 32                 # K1's one tile at cap 64
 PARITY_CYCLES = 32              # E1: parity_320 cut from 320 cycles
 PARITY_ARGV = (["--cycles", str(PARITY_CYCLES)],
@@ -271,6 +333,19 @@ NS_RESID_ABS = 1e-5
 
 def log(msg):
     print(msg, flush=True)
+
+
+class Clock:
+    """The script's wall time, printed as each group of phases ends."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def lap(self, what):
+        now = time.perf_counter()
+        log(f"wall: {what} {now - self.t:.1f} s (script {now - self.t0:.1f}"
+            " s)")
+        self.t = now
 
 
 def bound(flops, nbytes):
@@ -1251,15 +1326,19 @@ CARD_CPU_TOL32 = {"base_pos": 1e-5, "base_quat": 1e-5}
 CARD_CPU_TOL64 = 1e-9
 
 
-def check_card_vs_cpu(cfg, device, label="S3"):
+def check_card_vs_cpu(cfg, device, label="S3", tol64=None, n_ticks=None):
     """S3: one 20-tick rollout of B = 2 robots from one carry, on the
     card and on the CPU through the port, in float32 and float64;
-    compared per log leaf with the CPU parity tests' tolerances. E4
-    runs it with cfg.kf_enabled (the Kalman estimator). Returns the
-    card's ms a tick per dtype."""
+    compared per log leaf with the CPU parity tests' tolerances (tol64:
+    float64 bars by leaf, the key "default" for every other leaf,
+    CARD_CPU_TOL64 without it). E4 runs it
+    with cfg.kf_enabled (the Kalman estimator), D5 with the DDP backends
+    for n_ticks. Returns the card's ms a tick per dtype."""
     from qrw_tpu_torch.convert import tree_map
     from qrw_tpu_torch.sim.rollout import make_rollout, rollout
 
+    n_ticks = S3_TICKS if n_ticks is None else n_ticks
+    tol64 = tol64 or {}
     worst = {}
     tick_ms = {}
     for dtype in (torch.float32, torch.float64):
@@ -1275,11 +1354,11 @@ def check_card_vs_cpu(cfg, device, label="S3"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, card = rollout(ctl, tree_map(lambda a: a.to(device), carry),
-                          S3_TICKS)
+                          n_ticks)
         torch.cuda.synchronize()
-        tick_ms[str(dtype)[6:]] = 1e3 * (time.perf_counter() - t0) / S3_TICKS
+        tick_ms[str(dtype)[6:]] = 1e3 * (time.perf_counter() - t0) / n_ticks
         assert_no_kernel(f"{label} {dtype}")
-        _, cpu = rollout(ctl, carry, S3_TICKS)
+        _, cpu = rollout(ctl, carry, n_ticks)
         f32 = dtype == torch.float32
         for name, g, w in zip(cpu._fields, card, cpu):
             g, w = g.cpu().numpy(), w.numpy()
@@ -1291,12 +1370,16 @@ def check_card_vs_cpu(cfg, device, label="S3"):
                 continue
             scale = max(1.0, float(np.abs(w).max()))
             err = float(np.abs(g - w).max()) / scale
-            tol = CARD_CPU_TOL32.get(name, 1e-3) if f32 else CARD_CPU_TOL64
+            tol = (CARD_CPU_TOL32.get(name, 1e-3) if f32 else
+                   tol64.get(name, tol64.get("default", CARD_CPU_TOL64)))
             worst[(str(dtype)[6:], name)] = (err, tol)
             assert err <= tol, f"{name} ({dtype}): {err:.3g} of scale > {tol}"
     top = sorted(worst.items(), key=lambda kv: -kv[1][0] / kv[1][1])[:4]
-    log(f"{label} card vs CPU{' (Kalman estimator)' if cfg.kf_enabled else ''}"
-        f", B = 2, {S3_TICKS} ticks, every log leaf: worst "
+    what = (" (Kalman estimator)" if cfg.kf_enabled else
+            " (planner)" if cfg.mpc_planner else
+            " (DDP MPC)" if not cfg.type_MPC else "")
+    log(f"{label} card vs CPU{what}"
+        f", B = 2, {n_ticks} ticks, every log leaf: worst "
         "(error / tolerance, of scale) " + "; ".join(
             f"{d} {n} {e:.3g}/{t:g}" for (d, n), (e, t) in top)
         + "; card ms a tick (the first run of the process included) "
@@ -1447,6 +1530,249 @@ def run_estimator_demo(cfg, device):
     assert code == 0 and all(np.isfinite(v) for v in m.values()), m
     assert m["z_rmse"] < 0.05 and m["xy_drift"] < 0.05, m
     return m, wall
+
+
+# ----------------------------------------------------------------------
+# The DDP MPC backends (ops/ilqr, core/mpc_ddp, core/mpc_ddp_planner,
+# eval/compare): plain PyTorch, no kernel
+# ----------------------------------------------------------------------
+
+def device_busy(fn):
+    """(wall ms, device ms) of one `fn()` under torch.profiler: the wall
+    between synchronizations and the summed self device time of its
+    kernels (None where the profiler records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = 0.0
+    for e in prof.key_averages():
+        dev += getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) or 0.0
+    return 1e3 * wall, (dev / 1e3 if dev > 0 else None)
+
+
+def _leaf_err(got, want):
+    w = want.detach().cpu().double()
+    return float((got.detach().cpu().double() - w).abs().max()) / max(
+        1.0, float(w.abs().max()))
+
+
+def check_ddp_slice(cfg, xr_np, fs_np, device):
+    """D1's B = 8 slice: a cold and a warm DDP solve on the card and on
+    the CPU from the same inputs, float64 and float32; every leaf of the
+    result held to DDP_TOL. Returns {dtype: worst (error, bar, leaf)}
+    and the list of the leaves over their bar."""
+    from qrw_tpu_torch.core import mpc_ddp
+
+    worst, over = {}, []
+    for dtype in (torch.float64, torch.float32):
+        runs = {}
+        for dev in (device, "cpu"):
+            x = torch.as_tensor(xr_np[:DDP_SLICE_B], dtype=dtype, device=dev)
+            f = torch.as_tensor(fs_np[:DDP_SLICE_B], dtype=dtype, device=dev)
+            st, runs[dev] = None, []
+            for _ in range(2):
+                r = mpc_ddp.solve_mpc_ddp(cfg, x, f, st)
+                st = r.state
+                runs[dev].append(r)
+        plan_tol, cost_tol = DDP_TOL[dtype]
+        errs = []
+        for g, w in zip(runs[device], runs["cpu"]):
+            for name, a, b, tol in (
+                    ("x_f_applied", g.x_f_applied, w.x_f_applied, plan_tol),
+                    ("xs", g.state.xs, w.state.xs, plan_tol),
+                    ("us", g.state.us, w.state.us, plan_tol),
+                    ("cost", g.cost, w.cost, cost_tol),
+                    ("cost_trace", g.cost_trace, w.cost_trace, cost_tol)):
+                err = _leaf_err(a, b)
+                if not (err <= tol and bool(torch.isfinite(a).all())):
+                    over.append(f"{name} ({dtype}): {err:.3g} > {tol}")
+                errs.append((err, tol, name))
+        worst[str(dtype)[6:]] = max(errs, key=lambda e: e[0] / e[1])
+    return worst, over
+
+
+def run_ddp_batch(cfg, device):
+    """D1: bench.py::run_ddp_bench through the port: B = 1024 trot
+    problems of build_batch(cfg, B, default_rng(11)) (the port's copy in
+    eval/kernel_profile), one warm-started batched DDP solve
+    (core/mpc_ddp.solve_mpc_ddp, 10 iLQR iterations) a 50 Hz cycle: one
+    warm-up cycle, then DDP_CYCLES timed cycles; the torch operations one
+    solve dispatches; the mean total fz of the last cycle's first node
+    (bar: within 2 N of qrw_tpu's DDP_FZ_REF, all finite). Then the
+    B = 8 slice, card against CPU."""
+    from qrw_tpu_torch.core import mpc_ddp
+    from qrw_tpu_torch.eval.kernel_profile import build_batch
+    from qrw_tpu_torch.utils.op_count import count_ops, launches
+
+    xr_np, fs_np = build_batch(cfg, DDP_B, np.random.default_rng(11))
+    xr = torch.as_tensor(xr_np, device=device)
+    fs = torch.as_tensor(fs_np, device=device)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = mpc_ddp.solve_mpc_ddp(cfg, xr, fs).state          # warm-up cycle
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(DDP_CYCLES):
+        res = mpc_ddp.solve_mpc_ddp(cfg, xr, fs, st)
+        st = res.state
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert_no_kernel("D1 batched DDP")
+    ops = count_ops(lambda: mpc_ddp.solve_mpc_ddp(cfg, xr, fs, st))
+    ops = (sum(ops.values()), launches(ops))
+    prof_wall, prof_dev = device_busy(
+        lambda: mpc_ddp.solve_mpc_ddp(cfg, xr, fs, st))
+    busy = ("not measured" if prof_dev is None else
+            f"{prof_dev:.3f} ms of {prof_wall:.3f} ms, busy share "
+            f"{prof_dev / prof_wall:.4f}")
+    fz = res.x_f_applied[:, 12:, 0].reshape(DDP_B, 4, 3)[:, :, 2].sum(1)
+    fz_mean = float(fz.mean())
+    finite = bool(torch.isfinite(res.x_f_applied).all())
+    ms = 1e3 * wall / DDP_CYCLES
+    worst, over = check_ddp_slice(cfg, xr_np, fs_np, device)
+    log(f"D1 batched DDP (bench.py::run_ddp_bench), B = {DDP_B}, "
+        f"{DDP_CYCLES} warm cycles in {wall:.3f} s: "
+        f"{DDP_B * DDP_CYCLES / wall:.1f} solves/s, {ms:.3f} ms a batched "
+        f"solve ({1e3 * ms / DDP_B:.3f} us a problem; warm-up cycle "
+        f"{first:.3f} s); {ops[0]} torch ops a solve, {ops[1]} not views "
+        f"(launches); device time of one solve (torch.profiler) {busy}; "
+        f"mean total fz of the first node {fz_mean:.4f} N "
+        f"(qrw_tpu {DDP_FZ_REF}; mg {cfg.mass * cfg.gravity:.4f}); finite "
+        f"{finite}; B = {DDP_SLICE_B} card vs CPU, "
+        "worst (error / bar, of scale): " + "; ".join(
+            f"{d} {n} {e:.3g}/{t:g}" for d, (e, t, n) in worst.items()))
+    assert not over, f"D1 slice card vs CPU: {over}"
+    assert finite, "non-finite DDP plan"
+    assert abs(fz_mean - DDP_FZ_REF) < 2.0, f"mean total fz {fz_mean:.3f}"
+    return dict(solves_s=DDP_B * DDP_CYCLES / wall, ms=ms, ops=ops,
+                fz=fz_mean, device_ms=prof_dev)
+
+
+def _single_run_summary(label, cfg, logs, wall, n_ticks, solves):
+    """Bars of the JAX package's DDP rollout tests (tests/
+    test_mpc_ddp.py:144-158, 175-187; tests/test_mpc_planner.py:97-109):
+    |h - h_ref| < 0.05 at the end, no security latch; finite."""
+    h = logs.base_pos[..., 2].cpu().numpy()
+    latched = bool(logs.error.any())
+    log(f"{label}: {n_ticks} ticks in {wall:.3f} s, "
+        f"{1e3 * wall / n_ticks:.2f} ms a tick ({n_ticks / wall:.2f} "
+        f"ticks/s); {solves} MPC solves; height final {h[-1]:.4f} min "
+        f"{h.min():.4f} (h_ref {cfg.h_ref}); latched {latched}")
+    assert np.isfinite(h).all(), "non-finite height"
+    assert abs(h[-1] - cfg.h_ref) < 0.05, f"final height {h[-1]:.4f}"
+    assert not latched, "security latch"
+    return 1e3 * wall / n_ticks
+
+
+def run_ddp_cli(cfg, device):
+    """D2: the CLI's single-robot mode with --ddp (type_MPC = False) for
+    DDP_TICKS ticks, through runtime.main: its defaults (velID 2, the
+    default perturbations, float32)."""
+    from qrw_tpu_torch.core import mpc_ddp
+    from qrw_tpu_torch.runtime import main as cli
+
+    reset_counts()
+    with Recorder(mpc_ddp, "solve_mpc_ddp") as solves, \
+            Recorder(cli, "run_single") as rec:
+        code = cli.main(["--ddp", "--ticks", str(DDP_TICKS), "--device",
+                         device])
+    assert_no_kernel("D2 --ddp")
+    (_, logs, wall), = rec.out
+    assert code == 0
+    assert len(solves.out) == DDP_TICKS // cfg.k_mpc
+    return _single_run_summary("D2 --ddp (runtime.main)", cfg, logs, wall,
+                               DDP_TICKS, len(solves.out))
+
+
+def run_single_config(label, cfg, device, n_ticks, module, name):
+    """D3, D4: the CLI's single-robot mode (runtime.main.run_single, as
+    `--config` with the backend's flag selects it) for n_ticks, its
+    solves counted through `module.name`."""
+    from qrw_tpu_torch.runtime import main as cli
+
+    args = cli.build_argparser().parse_args(["--ticks", str(n_ticks)])
+    rcfg = cfg.replace(N_SIMULATION=n_ticks)
+    reset_counts()
+    with Recorder(module, name) as solves:
+        _, logs, wall = cli.run_single(rcfg, args, device, torch.float32)
+        code = cli.single_summary(rcfg, args, logs, wall)
+    assert_no_kernel(label)
+    assert code == 0
+    return _single_run_summary(label, rcfg, logs, wall, n_ticks,
+                               len(solves.out)), len(solves.out)
+
+
+def run_compare(cfg, device):
+    """D6: eval/compare on the card as qrw_tpu's test of it runs
+    (tests/test_aux.py:62-85): a float64 capture of COMPARE_TICKS ticks
+    of the closed loop (compare.capture_cycles, the QP backend), then
+    every cycle from COMPARE_SKIP on re-solved by both backends, cold
+    (compare_solvers: DDP at 40 iterations) and warm in the loop
+    (compare_solvers_warm); bars: both fz means within 2 N of mg/4 and
+    force_rmse_mean < 3 N, both ways."""
+    from qrw_tpu_torch.eval import compare
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xr, fs = compare.capture_cycles(cfg, COMPARE_TICKS, device=device)
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter() - t0
+    mg4 = cfg.mass * cfg.gravity / 4
+    out = {}
+    for mode, fn in (("cold", compare.compare_solvers),
+                     ("warm-in-loop", compare.compare_solvers_warm)):
+        t0 = time.perf_counter()
+        s = compare.summarize(fn(cfg, xr[COMPARE_SKIP:], fs[COMPARE_SKIP:]))
+        s["seconds"] = time.perf_counter() - t0
+        out[mode] = s
+        log(f"D6 eval.compare ({mode}) on the card: {json.dumps(s)}")
+    assert_no_kernel("D6 eval.compare")
+    log(f"D6 capture {COMPARE_TICKS} ticks (float64) in {t_cap:.1f} s "
+        f"({1e3 * t_cap / COMPARE_TICKS:.2f} ms a tick)")
+    for mode, s in out.items():
+        assert s["cycles"] == COMPARE_TICKS // cfg.k_mpc - COMPARE_SKIP
+        assert abs(s["fz_qp_mean"] - mg4) < 2.0, (mode, s)
+        assert abs(s["fz_ddp_mean"] - mg4) < 2.0, (mode, s)
+        assert s["force_rmse_mean"] < 3.0, (mode, s)
+    return out
+
+
+def run_ddp_phases(cfg, device, clock):
+    """D1-D6 in order; each asserts that it launched none of K1-K3."""
+    from qrw_tpu_torch.core import mpc_ddp, mpc_ddp_planner
+
+    d1 = run_ddp_batch(cfg, device)
+    clock.lap("D1")
+    d2 = run_ddp_cli(cfg, device)
+    clock.lap("D2")
+    d3, _ = run_single_config(
+        "D3 planner (mpc_planner)", cfg.replace(mpc_planner=True), device,
+        DDP_TICKS, mpc_ddp_planner, "solve_mpc_planner")
+    clock.lap("D3")
+    d4, n4 = run_single_config(
+        "D4 every-tick DDP (mpc_every_tick)",
+        cfg.replace(type_MPC=False, mpc_every_tick=True), device,
+        EVERY_TICK_TICKS, mpc_ddp, "solve_mpc_ddp")
+    assert n4 == EVERY_TICK_TICKS, n4
+    clock.lap("D4")
+    check_card_vs_cpu(cfg.replace(type_MPC=False), device, label="D5",
+                      tol64=DDP_PLAN_TOL64, n_ticks=D5_TICKS)
+    check_card_vs_cpu(cfg.replace(mpc_planner=True), device, label="D5",
+                      tol64=PLANNER_TOL64, n_ticks=D5_TICKS)
+    clock.lap("D5")
+    d6 = run_compare(cfg, device)
+    clock.lap("D6")
+    return d1, d2, d3, d4, d6
 
 
 # ----------------------------------------------------------------------
@@ -2047,6 +2373,7 @@ def main() -> int:
     log(f"torch {torch.__version__} CUDA {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)}")
+    clock = Clock()
     t0 = time.perf_counter()
     kernels.library()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
@@ -2085,6 +2412,7 @@ def main() -> int:
         check_rescue_kernel(cfg, device, gait="walk")
     check_cone_bits(cfg, device)
     check_cone_nonfinite(cfg, device)
+    clock.lap("kernel build, K1 and K2 checks")
     k2_launches = run_rescue_path(cfg, device)
     launches, _ = run_main_path(cfg, device)
     check_slice(cfg, ps, device)
@@ -2092,19 +2420,27 @@ def main() -> int:
     calibration = {"bounding": capture}
     k1_hetero, k2_hetero, _ = run_hetero_path(cfg, device, calibration)
     check_hetero_slice(cfg, device, calibration)
+    clock.lap("the fleets and S1")
     run_batch_path(cfg, device)
+    clock.lap("S2")
     check_card_vs_cpu(cfg, device)
+    clock.lap("S3")
     _, parity_counts, _ = run_parity(cfg, device)
+    clock.lap("E1")
     run_fleet_mpc_path(cfg, device)
     run_sweep_path(cfg, device)
+    clock.lap("E2, E3")
     check_card_vs_cpu(cfg.replace(kf_enabled=True), device, label="E4")
     run_estimator_demo(cfg, device)
+    clock.lap("E4, E5")
+    run_ddp_phases(cfg, device, clock)
     err3, k3, k3_ns0 = check_ns_kernel(cfg, device)
     err4, k4_ms, p4_ms, k4_bound, k4_ref, k4_variants = check_full_kernel(
         cfg, device)
     check_full_path(cfg, device)
     k2_full, k3_launches, _ = run_entry_point(cfg, device)
     split_ns_cycle(cfg, device)
+    clock.lap("K3, K2 at n = 192, the full path and kernel_profile")
 
     log(json.dumps({"kernels": [{
         "name": "qp_phase", "route": "cuda",

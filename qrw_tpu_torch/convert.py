@@ -9,11 +9,12 @@ through. `to_numpy` goes back: tensors become numpy arrays, and with
 `like` (a tree of the same structure, e.g. the qrw_tpu original) every
 NamedTuple takes the class found at the same place in `like`.
 
-Covered: PhaseQPData, PhaseStructure, ControllerState, SimState (with
-its Projectiles), DeviceData, MPCLaneState, MPCWarmState, MPCBatchState,
-FleetCarry, RolloutCarry, RolloutLog, Telemetry and the solver results
-(PhaseQPResult, PallasQPResult, QPSolution, MPCResult), with everything
-they hold. A carry broadcast to a leading batch axis (B, ...) converts
+Covered: PhaseQPData, PhaseStructure, ControllerState (with the QP,
+DDP or planner MPC carry: MPCState, DDPState, PlannerState), SimState
+(with its Projectiles), DeviceData, MPCLaneState, MPCWarmState,
+MPCBatchState, FleetCarry, RolloutCarry, RolloutLog, Telemetry and the
+solver results (PhaseQPResult, PallasQPResult, QPSolution, MPCResult,
+ILQRResult, DDPResult, PlannerResult), with everything they hold. A carry broadcast to a leading batch axis (B, ...) converts
 the same way.
 """
 
@@ -30,8 +31,9 @@ def _registry():
     if _REGISTRY is None:
         from qrw_tpu_torch.core import (controller, estimator,
                                         foot_trajectory, footstep, gait,
-                                        kalman, mpc, mpc_lane, wbc)
-        from qrw_tpu_torch.ops import qp, qp_pallas, qp_phase
+                                        kalman, mpc, mpc_ddp,
+                                        mpc_ddp_planner, mpc_lane, wbc)
+        from qrw_tpu_torch.ops import ilqr, qp, qp_pallas, qp_phase
         from qrw_tpu_torch.sim import fleet, physics, rollout, terrain
         classes = [
             qp_phase.PhaseQPData, qp_phase.PhaseQPResult,
@@ -47,7 +49,9 @@ def _registry():
             physics.SimState, physics.Projectiles, fleet.FleetCarry,
             fleet.FleetLog, fleet.FleetCycleLog, terrain.Terrain,
             terrain.FleetTerrain, mpc.MPCResult, controller.Telemetry,
-            rollout.RolloutCarry, rollout.RolloutLog]
+            rollout.RolloutCarry, rollout.RolloutLog, mpc_ddp.DDPState,
+            mpc_ddp.DDPResult, mpc_ddp_planner.PlannerState,
+            mpc_ddp_planner.PlannerResult, ilqr.ILQRResult]
         _REGISTRY = {c.__name__: c for c in classes}
     return _REGISTRY
 

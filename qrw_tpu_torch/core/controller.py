@@ -5,20 +5,22 @@ Port of qrw_tpu/core/controller.py: `make_controller`, `init_state`,
 footsteps -> swing trajectories -> reference states), `wbc_inputs`,
 `compute_post` (the per-robot WBC, or a precomputed WBC result: the
 fleet's lane-major WBC) and the whole tick `compute`, with the MPC
-solved every k_mpc ticks (core/mpc.solve_mpc), the `mpc_async` stale
-roll and the optional `Telemetry`. Every function broadcasts over
-leading robot batch axes; the tick index `k` is a Python int shared by
-the batch, so the JAX package's `lax.cond` on the solve tick is a
-Python branch here.
+solved every k_mpc ticks, the `mpc_async` stale roll and the optional
+`Telemetry`. The MPC backend is the config's, as in the JAX package:
+the QP MPC (core/mpc.solve_mpc) when `type_MPC`, else the DDP MPC
+(core/mpc_ddp; with `mpc_every_tick` re-solved every tick with a
+shrunken first node), and the footstep-optimizing DDP planner
+(core/mpc_ddp_planner) over both when `mpc_planner`, whose optimized
+touchdowns drive the swing feet. Every function broadcasts over leading
+robot batch axes; the tick index `k` is a Python int shared by the
+batch, so the JAX package's `lax.cond` on the solve tick is a Python
+branch here.
 
 The reference quirks the JAX package keeps on purpose are kept here
 too: the Coriolis terms of the foot references use the PREVIOUS tick's
 feet_p_cmd / feet_v_cmd, the x/y/yaw hybrid state is integrated from the
 command ("perfect odometry"), and the security envelope reads the
 default Config's q_security.
-
-Not ported yet: the DDP MPC backends (type_MPC=False, mpc_planner); a
-config that selects them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.models.solo12 import H_INIT, make_solo12
 from qrw_tpu_torch.core import gait as gait_mod
 from qrw_tpu_torch.core import mpc as mpc_mod
+from qrw_tpu_torch.core import mpc_ddp
+from qrw_tpu_torch.core import mpc_ddp_planner
 from qrw_tpu_torch.core import wbc as wbc_mod
 from qrw_tpu_torch.core.estimator import (DeviceData, EstimatorOutput,
                                           EstimatorState,
@@ -65,7 +69,7 @@ class ControllerState(NamedTuple):
     footstep: FootstepState
     foot_traj: FootTrajState
     estimator: EstimatorState
-    mpc: mpc_mod.MPCState
+    mpc: NamedTuple              # MPCState, DDPState or PlannerState
     x_f_mpc: torch.Tensor        # (..., 24, N) latest MPC plan
     x_f_next: torch.Tensor       # (..., 24, N)
     last_xref: torch.Tensor      # (..., 12, N+1)
@@ -110,8 +114,6 @@ def init_state(ctl: Controller, dtype=torch.float32, gait: str = "trot",
                device="cpu") -> ControllerState:
     """One robot's initial controller state (no batch axis)."""
     cfg = ctl.cfg
-    if cfg.mpc_planner or not cfg.type_MPC:
-        raise NotImplementedError("the DDP MPC backends are not ported yet")
     kw = dict(dtype=dtype, device=device)
     q_init = torch.tensor(cfg.q_init, **kw)
     q = torch.cat([torch.tensor([0.0, 0.0, cfg.h_ref, 0.0, 0.0, 0.0, 1.0],
@@ -122,7 +124,13 @@ def init_state(ctl: Controller, dtype=torch.float32, gait: str = "trot",
         footstep=make_footstep_state(cfg, torch.as_tensor(SHOULDERS, **kw)),
         foot_traj=make_foot_traj_state(p0),
         estimator=init_estimator_state(cfg, H_INIT, dtype, device),
-        mpc=mpc_mod.init_mpc_state(cfg, dtype, device),
+        # type_MPC selects the QP (OSQP-equivalent) or the DDP
+        # (Crocoddyl-equivalent) backend (scripts/MPC_Wrapper.py:59-64);
+        # mpc_planner the footstep-optimizing DDP over both
+        mpc=(mpc_ddp_planner.init_planner_state(cfg, dtype, device)
+             if cfg.mpc_planner else
+             mpc_mod.init_mpc_state(cfg, dtype, device) if cfg.type_MPC
+             else mpc_ddp.init_ddp_state(cfg, dtype, device)),
         x_f_mpc=torch.zeros((24, cfg.n_steps), **kw),
         x_f_next=torch.zeros((24, cfg.n_steps), **kw),
         last_xref=torch.zeros((12, cfg.n_steps + 1), **kw),
@@ -300,13 +308,32 @@ def compute(ctl: Controller, state: ControllerState, device: DeviceData,
     Returns (new_state, Result), or (new_state, Result, Telemetry) with
     return_telemetry."""
     cfg = ctl.cfg
-    if cfg.mpc_planner or not cfg.type_MPC:
-        raise NotImplementedError("the DDP MPC backends are not ported yet")
+    k_mpc = cfg.k_mpc
     pre = compute_pre(ctl, state, device, k, v_ref6, joystick_code,
                       perfect_estimator)
-    if cfg.mpc_every_tick or k % cfg.k_mpc == 0:
-        res = mpc_mod.solve_mpc(cfg, pre.xref, pre.fsteps, state.mpc,
-                                ctl.mpc_settings)
+    planner_target = state.planner_target
+    if cfg.mpc_every_tick or k % k_mpc == 0:
+        if cfg.mpc_planner:
+            oRh, oTh = pre.oRh, pre.oTh[..., :, None]
+            l_feet = oRh.transpose(-1, -2) @ (state.foot_traj.position - oTh)
+            res = mpc_ddp_planner.solve_mpc_planner(
+                cfg, pre.xref, pre.fsteps, l_feet, state.mpc,
+                cycle=k // k_mpc)
+            planner_target = oRh @ res.o_target + oTh
+        elif cfg.type_MPC:
+            res = mpc_mod.solve_mpc(cfg, pre.xref, pre.fsteps, state.mpc,
+                                    ctl.mpc_settings)
+        elif cfg.mpc_every_tick:
+            # 500 Hz MPC (crocoddyl_eval/test_5): the first node covers
+            # the time left to the next gait boundary; the warm start is
+            # shifted only on the boundary itself
+            dt_first = torch.tensor(float(k_mpc - k % k_mpc),
+                                    dtype=state.q.dtype) * cfg.dt_wbc
+            res = mpc_ddp.solve_mpc_ddp(cfg, pre.xref, pre.fsteps, state.mpc,
+                                        dt_first=dt_first,
+                                        shift_warm=k % k_mpc == 0)
+        else:
+            res = mpc_ddp.solve_mpc_ddp(cfg, pre.xref, pre.fsteps, state.mpc)
         x_f_next = res.x_f_applied
         x_f_mpc = x_f_next
         if cfg.mpc_async and k != 0:
@@ -318,8 +345,7 @@ def compute(ctl: Controller, state: ControllerState, device: DeviceData,
         x_f_mpc, x_f_next, mpc_state = (state.x_f_mpc, state.x_f_next,
                                         state.mpc)
     return compute_post(ctl, state, pre, k, x_f_mpc, x_f_next, mpc_state,
-                        state.planner_target,
-                        return_telemetry=return_telemetry)
+                        planner_target, return_telemetry=return_telemetry)
 
 
 def compute_post(ctl: Controller, state: ControllerState, pre: PreMPC,

@@ -4,15 +4,20 @@ Port of qrw_tpu/eval/analyze.py: the reference's post-hoc analysis
 entry points (plotAll from a LoggerControl .npz dump, the estimator
 studies of plot_IMU_mocap_result.py) on a saved .npz rollout log, which
 either package may have written (utils/logger keeps the JAX package's
-keys). Runs on the host CPU.
+keys). The figures and metrics are made on the host CPU; `--compare`
+(the solver comparison of the reference's analyse_simu scripts,
+eval/compare: every logged MPC cycle re-solved with the QP and the DDP
+backends, warm in the loop and cold) re-solves in float64 on the card
+unless `--cpu` is given.
 
     python -m qrw_tpu_torch.eval.analyze run.npz --plot out     # plotAll
     python -m qrw_tpu_torch.eval.analyze run.npz --estimator    # metrics
     python -m qrw_tpu_torch.eval.analyze run.npz --fk-feet
     python -m qrw_tpu_torch.eval.analyze run.npz --tracking b.npz
+    python -m qrw_tpu_torch.eval.analyze run.npz --compare      # QP vs DDP
 
-`--slider` and `--forces` (utils/viz) and `--compare` (the DDP backend,
-eval/compare) are not ported yet and exit with "not yet ported".
+`--slider` and `--forces` (utils/viz) are not ported yet and exit with
+"not yet ported".
 """
 
 from __future__ import annotations
@@ -38,7 +43,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "--plot)")
     p.add_argument("--compare", action="store_true",
                    help="re-solve every MPC cycle with the QP and DDP "
-                        "backends (not ported yet)")
+                        "backends and report the divergence")
+    p.add_argument("--cpu", action="store_true",
+                   help="--compare on the CPU (default: the card)")
     p.add_argument("--fk-feet", action="store_true",
                    help="per-foot leg-odometry velocity study")
     p.add_argument("--tracking", nargs="*", default=None, metavar="NPZ",
@@ -52,8 +59,8 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     unported = [name for name, on in [
-        ("--slider", args.slider), ("--forces", args.forces is not None),
-        ("--compare", args.compare)] if on]
+        ("--slider", args.slider),
+        ("--forces", args.forces is not None)] if on]
     if unported:
         print(f"not yet ported: {', '.join(unported)}", file=sys.stderr)
         return 2
@@ -112,6 +119,26 @@ def main(argv=None) -> int:
                       save_prefix=None if args.show else prefix)
         if not args.show:
             print(f"tracking figure saved as {prefix}_tracking.png")
+
+    if args.compare:
+        import torch
+        from qrw_tpu_torch.eval.compare import (compare_solvers,
+                                                compare_solvers_warm,
+                                                summarize)
+        from qrw_tpu_torch.sim.fleet import _check_device
+        device = _check_device("cpu" if args.cpu else "cuda")
+        ticks = slice(0, data["mpc_xref"].shape[0], cfg.k_mpc)
+        xr = torch.as_tensor(data["mpc_xref"][ticks], dtype=torch.float64,
+                             device=device)
+        fs = torch.as_tensor(data["mpc_fsteps"][ticks], dtype=torch.float64,
+                             device=device)
+        # warm in-loop (production budgets, the reference's test_1
+        # methodology) and the cold like-for-like re-solve
+        for name, fn in (("warm-in-loop", compare_solvers_warm),
+                         ("cold", compare_solvers)):
+            print(f"solver comparison ({name}):",
+                  {k: round(v, 5)
+                   for k, v in summarize(fn(cfg, xr, fs)).items()})
     return 0
 
 

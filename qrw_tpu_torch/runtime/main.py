@@ -8,7 +8,10 @@ joint angles by np.random.default_rng(seed).normal(scale=0.01) exactly
 as the JAX entry point draws them; `--gait`, `--velID`, `--envID`
 (1: the stairs course with its thrown spheres), `--bumpy`, `--perfect`,
 `--kf` (the 18-state Kalman estimator), `--f64` and `--ticks` select
-the scenario, as there. `--save [PATH]` writes the logs (robot 0 of a
+the scenario, as there; `--ddp` runs the DDP (Crocoddyl-equivalent) MPC
+backend in place of the QP MPC (type_MPC = False). The planner
+(`mpc_planner`) and the every-tick DDP (`mpc_every_tick`) are chosen
+in the YAML of `--config`. `--save [PATH]` writes the logs (robot 0 of a
 batch) to an npz that either package loads, and `--plot [PREFIX]` saves
 the 13 figures of utils/logger.plot_all.
 
@@ -37,6 +40,7 @@ evaluation (eval/estimator_eval.run_demo).
     python -m qrw_tpu_torch.runtime.main
     python -m qrw_tpu_torch.runtime.main --batch 256 --ticks 500
     python -m qrw_tpu_torch.runtime.main --cpu --ticks 20 --batch 2
+    python -m qrw_tpu_torch.runtime.main --ddp --ticks 400
     python -m qrw_tpu_torch.runtime.main --ticks 500 --kf --save run.npz
     python -m qrw_tpu_torch.runtime.main --fleet 1024
     python -m qrw_tpu_torch.runtime.main --hetero 4096
@@ -45,9 +49,11 @@ evaluation (eval/estimator_eval.run_demo).
     python -m qrw_tpu_torch.runtime.main --estimator-demo --kf --ticks 500
 
 Everything runs on the card (`--device cuda`) unless `--cpu` or
-`--device cpu` asks for the CPU. The modes of the JAX entry point that
-are not ported yet (`--ddp`, `--host-loop`, `--mesh`, `--clone`,
-`--gamepad`, `--realtime`, and the fleets with `--batch`, `--bumpy` or
+`--device cpu` asks for the CPU. The fleets and `--fleet-mpc` run the
+phase solver whatever the MPC backend, as the JAX entry point's do
+(they never read type_MPC). The modes of the JAX entry point that are
+not ported yet (`--host-loop`, `--mesh`, `--clone`, `--gamepad`,
+`--realtime`, and the fleets with `--batch`, `--bumpy` or
 `--envID`) exit with "not yet ported".
 """
 
@@ -118,8 +124,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "solver and report solves/s and convergence")
     p.add_argument("--fleet-cycles", type=int, default=10,
                    help="warm cycles for --fleet-mpc")
+    p.add_argument("--ddp", action="store_true",
+                   help="use the DDP (Crocoddyl-equivalent) MPC backend")
     # modes of the JAX entry point that the port does not have yet
-    for flag in ("--host-loop", "--ddp", "--mesh", "--clone", "--gamepad",
+    for flag in ("--host-loop", "--mesh", "--clone", "--gamepad",
                  "--realtime"):
         p.add_argument(flag, action="store_true")
     return p
@@ -373,9 +381,9 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     fleets = bool(args.fleet or args.hetero)
     unported = [name for name, on in [
-        ("--host-loop", args.host_loop), ("--ddp", args.ddp),
-        ("--mesh", args.mesh), ("--clone", args.clone),
-        ("--gamepad", args.gamepad), ("--realtime", args.realtime),
+        ("--host-loop", args.host_loop), ("--mesh", args.mesh),
+        ("--clone", args.clone), ("--gamepad", args.gamepad),
+        ("--realtime", args.realtime),
         ("--batch with --fleet or --hetero", fleets and args.batch),
         ("--bumpy with --fleet or --hetero", fleets and args.bumpy),
         ("--envID with --fleet or --hetero",
@@ -395,6 +403,8 @@ def main(argv=None) -> int:
         overrides["N_SIMULATION"] = args.ticks
     if args.kf:
         overrides["kf_enabled"] = True
+    if args.ddp:
+        overrides["type_MPC"] = False
     if args.envID is not None:
         overrides["envID"] = args.envID
     if args.bumpy:

@@ -6,7 +6,9 @@ step), repeated for n ticks. The JAX package runs it as one jitted
 `lax.scan` and batches scenarios with `jax.vmap`; here it is a Python
 loop over ticks on tensors whose leading axes are robots, so a carry
 broadcast to (B, ...) runs B robots at once (the CLI's `--batch`). The
-MPC and WBC solves are per robot (ops/qp.solve), as under vmap.
+MPC and WBC solves are per robot, as under vmap: the QP MPC and the WBC
+through ops/qp.solve, the DDP backends (type_MPC False, mpc_planner)
+as B problems of one ops/ilqr.solve, their warm starts in the carry.
 
 The logs are preallocated on the carry's device, (..., T, *) as the
 JAX package's vmapped rollout returns them, and filled in place;

@@ -156,7 +156,7 @@ def test_analyze_saved_file(demo, tmp_path, capsys):
         assert os.path.exists(pre + suffix), suffix
     assert tan.main([path, "--plot", pre]) == 0
     assert os.path.exists(pre + "_fig12.png")
-    for flag in (["--compare"], ["--slider"], ["--forces", "3"]):
+    for flag in (["--slider"], ["--forces", "3"]):
         assert tan.main([path] + flag) == 2, flag
     plt.close("all")
 

@@ -3,11 +3,11 @@
 Importing any qrw_tpu_torch module must import neither jax nor any
 module of the JAX package qrw_tpu (the port runs on a machine without
 them); its copies of qrw_tpu's configuration and robot model must equal
-the originals. Branches the port does not cover yet (DDP MPC, other CLI
-modes) and the envID=1 spheres in the lane-major fleet step (qrw_tpu
-asserts there too) raise instead of taking another path, and a fleet or
-rollout asked for on CUDA raises on a host without a card instead of
-continuing on the CPU."""
+the originals. Branches the port does not cover yet (CLI modes) and the
+envID=1 spheres in the lane-major fleet step (qrw_tpu asserts there
+too) raise instead of taking another path, and a fleet or rollout asked
+for on CUDA raises on a host without a card instead of continuing on
+the CPU."""
 
 import dataclasses
 import os
@@ -59,38 +59,22 @@ def test_make_fleet_cuda_raises_without_card():
         fleet.make_fleet(CFG, 128, None, device="cuda")
 
 
-@pytest.mark.parametrize("branch", ["ddp", "terrain", "wbc"])
+@pytest.mark.parametrize("branch", ["terrain"])
 def test_unported_branches_raise(branch):
-    from qrw_tpu_torch.core import controller as tc
-    from qrw_tpu_torch.sim import physics
-    ctl = tc.make_controller(CFG)
+    # terrain and the stairs course's spheres are ported for the
+    # per-robot step; the lane-major fleet step takes no spheres
+    from qrw_tpu_torch.ops import rbd_lane
+    from qrw_tpu_torch.sim import physics, physics_lane
+    from qrw_tpu_torch.sim.terrain import make_terrain
+    cfg = CFG.replace(envID=1)
+    ss = physics.init_sim_state(cfg, terrain=make_terrain(cfg, device="cpu"))
+    assert ss.proj is not None
+    ss = physics.SimState(*[None if a is None else a[None]
+                            for a in ss[:-1]], proj=ss.proj)
+    z = torch.zeros((1, 12))
     with pytest.raises(NotImplementedError):
-        if branch == "ddp":
-            tc.init_state(tc.make_controller(CFG.replace(type_MPC=False)))
-        elif branch == "terrain":
-            # terrain and the stairs course's spheres are ported for the
-            # per-robot step; the lane-major fleet step takes no spheres
-            from qrw_tpu_torch.ops import rbd_lane
-            from qrw_tpu_torch.sim import physics_lane
-            from qrw_tpu_torch.sim.terrain import make_terrain
-            cfg = CFG.replace(envID=1)
-            ss = physics.init_sim_state(
-                cfg, terrain=make_terrain(cfg, device="cpu"))
-            assert ss.proj is not None
-            ss = physics.SimState(*[None if a is None else a[None]
-                                    for a in ss[:-1]],
-                                  proj=ss.proj)
-            z = torch.zeros((1, 12))
-            physics_lane.step_lane(cfg, rbd_lane.solo12_lane(), ss, z, z, z,
-                                   z, z)
-        else:
-            # the per-robot WBC is ported (compute_post runs it without a
-            # precomputed result); the tick still raises on the DDP MPC
-            from qrw_tpu_torch.sim.fleet import _device_from_sim
-            cs = tc.init_state(ctl)
-            dev = _device_from_sim(physics.init_sim_state(CFG))
-            ddp = tc.make_controller(CFG.replace(type_MPC=False))
-            tc.compute(ddp, cs, dev, 0)
+        physics_lane.step_lane(cfg, rbd_lane.solo12_lane(), ss, z, z, z, z,
+                               z)
 
 
 def test_cli_unported_modes_exit():
@@ -99,7 +83,7 @@ def test_cli_unported_modes_exit():
     ported and, asked for on CUDA on a host without a card, raise
     instead of running on the CPU."""
     from qrw_tpu_torch.runtime import main
-    for argv in (["--ddp"], ["--host-loop"], ["--mesh"], ["--clone"],
+    for argv in (["--host-loop"], ["--mesh"], ["--clone"],
                  ["--gamepad"], ["--realtime"], ["--sweep", "--mesh"],
                  ["--bumpy", "--fleet", "128"],
                  ["--fleet", "128", "--envID", "1"],
