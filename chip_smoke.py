@@ -120,6 +120,41 @@ Phases (any failure ends the run with a non-zero exit):
    from 400), the cycles from 10 on re-solved by both backends, cold
    and warm in the loop: fz means within 2 N of mg/4 and
    force_rmse_mean < 3 N (tests/test_aux.py:62-85).
+   H1-H7, the host runtime, and U1-U4, the utilities (no kernel on
+   these paths in either package; each phase asserts K1-K3 launched 0
+   times).
+   H1. runtime/ipc: the library built with g++ from
+   qrw_tpu_torch/csrc/qrw_ipc.cpp; 200 mailbox round trips across a
+   spawned process (median, max); the pacer's lateness over 200 periods
+   of 2 ms and its overruns.
+   H2. sim/device.SimDevice on the card, float32 and float64: a 50-tick
+   PD hold of q_init (height within 0.05 of 0.24 m), put_on_the_floor
+   for 0.2 s (gap < 0.15 rad), the float64 hold against the CPU (S3's
+   float64 bar); ms a tick.
+   H3. runtime/host_loop.run_host_loop, 120 ticks (trot, default
+   Config): no abort, latch or timeout, |z - h_ref| < 0.06 m, |tau_ff|
+   < tau_security; ms a tick. The startup abort (joints 0.8 rad off:
+   one tick), and 40 ticks driven by a SyntheticGamepad through the
+   spawned reader with a clone device (clone q = primary q).
+   H4. run_host_loop_pipelined(depth=2), 120 ticks: upright, the
+   periods' p50 and p99.
+   H5. runtime.main --host-loop --realtime --ticks 50 in-process (with
+   its 2.5 s damping shutdown): the pacer's overruns and lateness. No
+   real-time bar: the tick is host-bound at ~100 ms (PERF.md section 5).
+   H6. runtime/mpc_service.MPCService on the card: the spawned worker's
+   start-up seconds, three round trips, the plan against a direct
+   float64 solve_mpc on the card (1e-9 of scale), the stale read, stop.
+   H7. A 120-tick float32 rollout replayed from its logged commands
+   (runtime/replay.replay): base_pos against the rollout's (REPLAY_TOL32).
+   U1. utils/profiling.stage_timings on the card: ms per stage.
+   U2. A checkpoint at tick 20 (utils/checkpoint), resumed 20 ticks:
+   bit-equal to the run without the round trip.
+   U3. utils/viz.mpc_predictions of H7's logs (12 cycles, float64) on
+   the card against the CPU (1e-9 of scale).
+   U4. runtime.main --batch 8 --mesh --ticks 50 (parallel/mesh, NCCL,
+   world size 1) against the unsharded --batch 8, every log leaf equal;
+   scenario_metrics through the NCCL all-reduce against the plain
+   reductions.
 7. Kernel K3 against its plain version on full-size problems (n = 192)
    of the entry point's build_batch at B = 1024, both variants: the
    resident one (qrw_tpu_torch/csrc/qp_ns_refine_tc.cu, 3xTF32 on the
@@ -1776,6 +1811,485 @@ def run_ddp_phases(cfg, device, clock):
 
 
 # ----------------------------------------------------------------------
+# The host runtime (H1-H7) and the utilities (U1-U4): no kernel on these
+# paths, in either package; each phase asserts that it launched none
+# ----------------------------------------------------------------------
+
+HOST_TICKS = 120                # H3, H4, H7: the JAX tests' 120 ticks
+GAMEPAD_TICKS = 20              # H3's gamepad + clone run (JAX test: 60)
+REALTIME_TICKS = 50             # H5
+PACER_PERIODS = 200             # H1
+ECHOES = 200                    # H1: mailbox round trips
+FLOOR_S = 0.2                   # H2: put_on_the_floor (JAX test: 1 s)
+# H7: base_pos, m (float32). The first run on the card measured 0 (the
+# same kernels on the same commands); the bar allows ~60 float32 ulps
+# of the 0.24 m height
+REPLAY_TOL32 = 1e-6
+MESH_B = 8                      # U4: --batch 8 --mesh
+MESH_TICKS = 50                 # U4
+
+
+def sync_if(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _echo_child(in_name, out_name):
+    """H1's child: echo every message of one mailbox into the other
+    until a message whose first entry is negative."""
+    from qrw_tpu_torch.runtime.ipc import Mailbox
+    box_in = Mailbox(in_name, (8,), create=False)
+    box_out = Mailbox(out_name, (8,), create=False)
+    try:
+        while True:
+            msg = box_in.read()
+            if msg is None:
+                continue
+            box_out.write(msg)
+            if msg[0] < 0:
+                break
+    finally:
+        box_in.close()
+        box_out.close()
+
+
+def run_ipc_phase():
+    """H1: build the IPC library from qrw_tpu_torch/csrc/qrw_ipc.cpp, a
+    mailbox round trip across a spawned process, the pacer's lateness."""
+    import multiprocessing as mp
+    import os
+
+    from qrw_tpu_torch.runtime import ipc
+
+    reset_counts()
+    so = ipc._build_lib()
+    ipc.load_library()
+    built = ("loaded cached" if ipc.BUILD_SECONDS is None else
+             f"built in {ipc.BUILD_SECONDS:.2f} s")
+    tag = f"/qrw_smoke_{os.getpid()}"
+    box_in = ipc.Mailbox(tag + "_in", (8,))
+    box_out = ipc.Mailbox(tag + "_out", (8,))
+    proc = mp.get_context("spawn").Process(
+        target=_echo_child, args=(tag + "_in", tag + "_out"))
+    proc.start()
+    try:
+        rtt = []
+        for i in range(ECHOES + 1):
+            msg = np.full(8, float(i))
+            t0 = time.perf_counter()
+            box_in.write(msg)
+            deadline = t0 + (120.0 if i == 0 else 10.0)   # child start-up
+            while True:
+                got = box_out.read()
+                if got is not None:
+                    break
+                assert time.perf_counter() < deadline, "no echo"
+                assert proc.is_alive(), f"echo child died {proc.exitcode}"
+            rtt.append(time.perf_counter() - t0)
+            assert (got == msg).all(), (got, msg)
+        box_in.write(np.full(8, -1.0))
+        proc.join(timeout=30)
+        assert proc.exitcode == 0, proc.exitcode
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+        box_in.close()
+        box_out.close()
+    rtt = np.asarray(rtt[1:]) * 1e6
+    pacer = ipc.Pacer(0.002)
+    try:
+        late = np.asarray([pacer.wait() for _ in range(PACER_PERIODS)]) * 1e6
+        overruns = pacer.overruns
+    finally:
+        pacer.close()
+    assert_no_kernel("H1 IPC")
+    log(f"H1 IPC library {os.path.basename(so)} {built} (g++, from "
+        f"qrw_tpu_torch/csrc/qrw_ipc.cpp); mailbox round trip "
+        f"across a spawned process, {ECHOES} echoes: median "
+        f"{np.median(rtt):.1f} us, max {rtt.max():.1f} us; pacer over "
+        f"{PACER_PERIODS} periods of 2 ms: lateness median "
+        f"{np.median(late):.1f} us, max {late.max():.1f} us, overruns "
+        f"{overruns}")
+    return dict(rtt_us=float(np.median(rtt)),
+                pacer_late_us=float(np.median(late)))
+
+
+def _hold(cfg, dev, n):
+    """n ticks of the reference PD hold of q_init: (q_mes, dummyPos) per
+    tick."""
+    dev.SetDesiredJointPDgains(np.full(12, 6.0), np.full(12, 0.3))
+    dev.SetDesiredJointPosition(np.asarray(cfg.q_init))
+    dev.SetDesiredJointVelocity(np.zeros(12))
+    dev.SetDesiredJointTorque(np.zeros(12))
+    q, pos = [], []
+    for _ in range(n):
+        dev.UpdateMeasurment()
+        dev.SendCommand(WaitEndOfCycle=False)
+        dev.UpdateMeasurment()
+        q.append(dev.q_mes.copy())
+        pos.append(dev.dummyPos.copy())
+    return np.stack(q), np.stack(pos)
+
+
+def run_device_phase(cfg, device):
+    """H2: SimDevice on the card, float32 and float64: a 50-tick PD hold
+    (height within 0.05 of 0.24 m), put_on_the_floor (gap < 0.15 rad);
+    the float64 hold against the same run on the CPU (S3's bar)."""
+    from qrw_tpu_torch.sim.device import SimDevice, put_on_the_floor
+
+    reset_counts()
+    parts = []
+    for dtype in (torch.float32, torch.float64):
+        dev = SimDevice(cfg, dtype=dtype, device=device)
+        dev.Init(q_init=cfg.q_init)
+        sync_if(device)
+        t0 = time.perf_counter()
+        q, pos = _hold(cfg, dev, 50)
+        ms = 1e3 * (time.perf_counter() - t0) / 50
+        floor_dev = SimDevice(cfg, dtype=dtype, device=device)
+        floor_dev.Init(q_init=cfg.q_init)
+        gap = put_on_the_floor(floor_dev, cfg.q_init, duration_s=FLOOR_S)
+        assert abs(pos[-1, 2] - 0.24) < 0.05, pos[-1]
+        assert gap < 0.15, gap
+        part = (f"{str(dtype)[6:]} {ms:.2f} ms a tick, height "
+                f"{pos[-1, 2]:.4f}, floor gap {gap:.4f} rad")
+        if dtype == torch.float64:
+            cpu = SimDevice(cfg, dtype=dtype, device="cpu")
+            cpu.Init(q_init=cfg.q_init)
+            cq, cpos = _hold(cfg, cpu, 50)
+            err = max(np.abs(q - cq).max() / max(1.0, np.abs(cq).max()),
+                      np.abs(pos - cpos).max() / max(1.0,
+                                                     np.abs(cpos).max()))
+            assert err <= CARD_CPU_TOL64, err
+            part += f"; card vs CPU {err:.3g} of scale"
+        parts.append(part)
+    assert_no_kernel("H2 SimDevice")
+    log("H2 SimDevice PD hold (50 ticks), put_on_the_floor "
+        f"({FLOOR_S} s): " + "; ".join(parts))
+
+
+def run_host_loop_phase(cfg, device):
+    """H3: run_host_loop on the card, 120 ticks (trot, default Config):
+    no abort, latch or timeout, |z - h_ref| < 0.06 m every tick, |tau_ff|
+    < tau_security; ms a tick. Then the startup abort and the
+    SyntheticGamepad + clone run. Returns H3's ms a tick."""
+    from qrw_tpu_torch.runtime.gamepad import (FRAME_SIZE, GamepadReader,
+                                               SyntheticGamepad)
+    from qrw_tpu_torch.runtime.host_loop import run_host_loop
+    from qrw_tpu_torch.sim.device import SimDevice
+
+    reset_counts()
+    frames = np.zeros((1, FRAME_SIZE))
+    frames[0, 0] = 0.5                       # the stick pushed forward
+    # the reader starts now: its spawn overlaps the 120-tick run
+    t_gp = time.perf_counter()
+    gp = GamepadReader(source=SyntheticGamepad(frames), period_s=0.001)
+    try:
+        sync_if(device)
+        t0 = time.perf_counter()
+        res = run_host_loop(cfg, n_ticks=HOST_TICKS, torch_device=device)
+        ms = 1e3 * (time.perf_counter() - t0) / HOST_TICKS
+        assert res.n_ticks == HOST_TICKS, res.n_ticks
+        assert not (res.startup_abort or res.error or res.timeout)
+        dz = np.abs(res.q_log[:, 2] - cfg.h_ref).max()
+        tau = np.abs(res.tau_log).max()
+        assert dz < 0.06 and tau < cfg.tau_security, (dz, tau)
+
+        far = SimDevice(cfg, device=device)
+        far.Init(q_init=np.asarray(cfg.q_init) + 0.8)
+        abort = run_host_loop(cfg, n_ticks=10, device=far)
+        assert abort.startup_abort and abort.n_ticks == 1, abort[:4]
+
+        clone = SimDevice(cfg, device=device)
+        clone.Init(q_init=cfg.q_init)
+        while gp.read()[0] == 0:
+            assert time.perf_counter() - t_gp < 120, "no gamepad frame"
+            time.sleep(0.005)
+        wait_s = time.perf_counter() - t_gp
+        gpr = run_host_loop(cfg, n_ticks=GAMEPAD_TICKS, gamepad=gp,
+                            clone=clone, torch_device=device)
+    finally:
+        gp.stop()
+    assert not (gpr.startup_abort or gpr.error), gpr[:4]
+    clone.UpdateMeasurment()
+    clone_err = float(np.abs(clone.q_mes - gpr.q_log[-1, 7:]).max())
+    assert clone_err <= 1e-6, clone_err
+    assert_no_kernel("H3 host loop")
+    log(f"H3 run_host_loop, {HOST_TICKS} ticks on the card: {ms:.2f} ms a "
+        f"tick ({1e3 / ms:.2f} ticks/s), max "
+        f"|z - h_ref| {dz:.4f} m, max |tau_ff| {tau:.3f} N m; startup abort "
+        f"after {abort.n_ticks} tick; SyntheticGamepad (first frame "
+        f"{wait_s:.2f} s after its spawn) + clone, {GAMEPAD_TICKS} ticks: x "
+        f"{gpr.q_log[-1, 0]:.4f} m, clone - primary {clone_err:.3g} rad")
+    return ms
+
+
+def run_pipelined_phase(cfg, device, host_ms):
+    """H4: run_host_loop_pipelined(depth=2), 120 ticks: upright, no
+    latch; the periods' p50 and p99 beside H3's ms a tick."""
+    from qrw_tpu_torch.runtime.host_loop import run_host_loop_pipelined
+
+    reset_counts()
+    r = run_host_loop_pipelined(cfg, n_ticks=HOST_TICKS, depth=2,
+                                torch_device=device)
+    assert r.n_ticks == HOST_TICKS and not r.error
+    assert abs(r.q_log[-1, 2] - 0.2447) < 0.05, r.q_log[-1, 2]
+    assert r.periods_ms.shape == (HOST_TICKS - 1,)
+    p50, p99 = np.percentile(r.periods_ms, [50, 99])
+    assert_no_kernel("H4 pipelined host loop")
+    log(f"H4 run_host_loop_pipelined depth 2, {HOST_TICKS} ticks: period "
+        f"p50 {p50:.2f} ms, p99 {p99:.2f} ms (H3 {host_ms:.2f} ms a tick); "
+        f"final height {r.q_log[-1, 2]:.4f}")
+    return float(p50), float(p99)
+
+
+def run_realtime_phase(cfg, device):
+    """H5: python -m qrw_tpu_torch.runtime.main --host-loop --realtime
+    --ticks 50 in-process: the pacer's overruns and mean lateness. No bar
+    on real time: the tick is host-bound at ~100 ms, 50x the 2 ms
+    period, so every tick overruns."""
+    from qrw_tpu_torch.runtime import ipc
+    from qrw_tpu_torch.runtime import main as cli
+
+    seen = []
+    orig = ipc.Pacer.wait
+
+    def wait(self):
+        late = orig(self)
+        seen.append((late, self.overruns))
+        return late
+
+    reset_counts()
+    ipc.Pacer.wait = wait
+    try:
+        t0 = time.perf_counter()
+        code = cli.main(["--host-loop", "--realtime", "--ticks",
+                         str(REALTIME_TICKS), "--device", device])
+        wall = time.perf_counter() - t0
+    finally:
+        ipc.Pacer.wait = orig
+    assert code == 0, code
+    assert len(seen) == REALTIME_TICKS, len(seen)
+    late = np.asarray([s[0] for s in seen]) * 1e3
+    overruns = seen[-1][1]
+    assert_no_kernel("H5 --realtime")
+    log(f"H5 --host-loop --realtime --ticks {REALTIME_TICKS} (and its 2.5 "
+        f"s damping shutdown) in {wall:.1f} s: pacer overruns {overruns} of "
+        f"{REALTIME_TICKS}, lateness mean {late.mean():.2f} ms, max "
+        f"{late.max():.2f} ms (no real-time bar: the tick is host-bound, "
+        "PERF.md section 5)")
+    return overruns, float(late.mean())
+
+
+def mpc_problem(cfg):
+    """A seeded four-stance MPC problem (xref (12, N+1), fsteps)."""
+    rng = np.random.default_rng(5)
+    xref = np.zeros((12, cfg.n_steps + 1))
+    xref[2, :] = 0.2447
+    xref[:, 0] += rng.normal(scale=0.01, size=12)
+    xref[6, 1:] = 0.3
+    feet = np.array([0.195, 0.147, 0.0, 0.195, -0.147, 0.0,
+                     -0.195, 0.147, 0.0, -0.195, -0.147, 0.0])
+    fsteps = np.zeros((cfg.N_gait, 12))
+    fsteps[:cfg.n_steps] = feet
+    return xref, fsteps
+
+
+def run_mpc_service_phase(cfg, device):
+    """H6: MPCService on the card: the worker's start-up seconds, one
+    problem's round trip, the plan against a direct float64 solve_mpc on
+    the card (1e-9 of scale), the stale read, stop."""
+    from qrw_tpu_torch.core import mpc as mpc_mod
+    from qrw_tpu_torch.runtime.mpc_service import MPCService
+
+    reset_counts()
+    xref, fsteps = mpc_problem(cfg)
+    svc = MPCService(cfg, device=device)
+    try:
+        startup = svc.wait_ready()
+        rtts = []
+        for k in range(3):
+            t0 = time.perf_counter()
+            svc.solve(k, xref, fsteps)
+            got = svc.wait_result(timeout=60.0)
+            rtts.append(1e3 * (time.perf_counter() - t0))
+            if k == 0:
+                first = got
+        stale = svc.get_latest_result()
+        assert (stale == got).all(), "stale read changed"
+    finally:
+        svc.stop()
+    assert not svc._proc.is_alive() and svc._proc.exitcode == 0
+    f64 = dict(dtype=torch.float64, device=device)
+    direct = mpc_mod.solve_mpc(cfg, torch.as_tensor(xref, **f64),
+                               torch.as_tensor(fsteps, **f64),
+                               mpc_mod.init_mpc_state(cfg, **f64))
+    want = direct.x_f_applied.cpu().numpy()
+    err = float(np.abs(first - want).max()) / max(1.0, np.abs(want).max())
+    assert err <= 1e-9, err
+    assert_no_kernel("H6 MPC service")
+    log(f"H6 MPCService(device={device!r}): worker start-up {startup:.2f} s "
+        f"(spawn, torch import, CUDA context); round trips "
+        + ", ".join(f"{r:.1f}" for r in rtts) + " ms (first cold); plan vs "
+        f"a direct float64 solve_mpc on the card {err:.3g} of scale; stale "
+        "read unchanged; stopped")
+    return startup, rtts
+
+
+def run_replay_phase(cfg, device):
+    """H7: a 120-tick rollout on the card (float32), its logged commands
+    replayed through the simulator: base_pos against the rollout's.
+    Returns the logs (U3 re-solves their MPC cycles)."""
+    from qrw_tpu_torch.models.solo12 import make_solo12
+    from qrw_tpu_torch.ops import rbd
+    from qrw_tpu_torch.runtime.replay import replay
+    from qrw_tpu_torch.sim.physics import init_sim_state
+    from qrw_tpu_torch.sim.rollout import make_rollout, rollout
+
+    reset_counts()
+    ctl, carry = make_rollout(cfg, device=device)
+    _, logs = rollout(ctl, carry, HOST_TICKS)
+    sync_if(device)
+    t0 = time.perf_counter()
+    _, rlog = replay(cfg, rbd.to_torch(make_solo12()),
+                     init_sim_state(cfg, device=device), logs.q_des,
+                     logs.v_des, logs.tau_ff)
+    sync_if(device)
+    ms = 1e3 * (time.perf_counter() - t0) / HOST_TICKS
+    err = float((rlog.base_pos - logs.base_pos).abs().max())
+    assert err <= REPLAY_TOL32, err
+    assert_no_kernel("H7 replay")
+    log(f"H7 replay of a {HOST_TICKS}-tick rollout on the card (float32): "
+        f"{ms:.2f} ms a tick; base_pos against the rollout's {err:.3g} m "
+        f"(bar {REPLAY_TOL32:g})")
+    return logs
+
+
+def run_host_phases(cfg, device, clock):
+    """H1-H7 in order; returns (H7's logs, the numbers PERF.md quotes)."""
+    h = {"ipc": run_ipc_phase()}
+    run_device_phase(cfg, device)
+    h["tick_ms"] = run_host_loop_phase(cfg, device)
+    h["pipelined"] = run_pipelined_phase(cfg, device, h["tick_ms"])
+    h["realtime"] = run_realtime_phase(cfg, device)
+    h["service"] = run_mpc_service_phase(cfg, device)
+    logs = run_replay_phase(cfg, device)
+    clock.lap("H1-H7")
+    return logs, h
+
+
+def run_stage_timings(cfg, device):
+    """U1: utils/profiling.stage_timings on the card."""
+    from qrw_tpu_torch.utils.profiling import stage_timings
+
+    reset_counts()
+    t = stage_timings(cfg, reps=20, device=device)
+    assert all(v > 0 for v in t.values()), t
+    assert_no_kernel("U1 stage_timings")
+    log("U1 stage_timings (float32, 20 reps, synchronized), ms: "
+        + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in t.items()))
+    return t
+
+
+def run_checkpoint_phase(cfg, device):
+    """U2: 20 ticks, a checkpoint round trip, 20 more: bit-equal to the
+    same ticks without the round trip, on the card."""
+    import os
+    import tempfile
+
+    from qrw_tpu_torch.sim.rollout import make_rollout, rollout
+    from qrw_tpu_torch.utils.checkpoint import (_leaves_with_path,
+                                                load_state, save_state)
+
+    reset_counts()
+    ctl, carry = make_rollout(cfg, device=device)
+    mid, _ = rollout(ctl, carry, 20)
+    full, _ = rollout(ctl, mid, 20, k0=20)
+    with tempfile.TemporaryDirectory() as d:
+        path = save_state(os.path.join(d, "ck.npz"), mid)
+        loaded = load_state(path, mid)
+    resumed, _ = rollout(ctl, loaded, 20, k0=20)
+    pairs = zip(_leaves_with_path(full), _leaves_with_path(resumed))
+    n = 0
+    for (p, a), (_, b) in pairs:
+        assert a.dtype == b.dtype and torch.equal(a, b), "/".join(p)
+        n += 1
+    assert_no_kernel("U2 checkpoint")
+    log(f"U2 checkpoint at tick 20 on the card, resumed 20 ticks: {n} "
+        "leaves bit-equal to the run without the round trip")
+
+
+def run_viz_phase(cfg, device, logs):
+    """U3: viz.mpc_predictions of H7's logs on the card against the CPU,
+    float64 (1e-9 of scale)."""
+    from qrw_tpu_torch.utils import viz
+
+    reset_counts()
+    sync_if(device)
+    t0 = time.perf_counter()
+    ticks, card = viz.mpc_predictions(logs, cfg, device=device)
+    wall = time.perf_counter() - t0
+    _, cpu = viz.mpc_predictions(logs, cfg, device="cpu")
+    err = float(np.abs(card - cpu).max()) / max(1.0, np.abs(cpu).max())
+    assert err <= 1e-9, err
+    assert_no_kernel("U3 mpc_predictions")
+    log(f"U3 viz.mpc_predictions: {len(ticks)} cycles re-solved in one "
+        f"batched float64 call on the card in {wall:.2f} s; card vs CPU "
+        f"{err:.3g} of scale")
+
+
+def run_mesh_phase(cfg, device):
+    """U4: the CLI's --batch 8 --mesh at world size 1 (NCCL) against the
+    unsharded --batch 8, leaf by leaf; scenario_metrics through the NCCL
+    all-reduce against the plain reductions."""
+    from qrw_tpu_torch.parallel.mesh import make_mesh, scenario_metrics
+    from qrw_tpu_torch.runtime import main as cli
+
+    reset_counts()
+    argv = ["--batch", str(MESH_B), "--ticks", str(MESH_TICKS)]
+    with Recorder(cli, "run_single") as rec:
+        code = cli.main(argv + ["--mesh", "--device", device])
+    assert code == 0, code
+    (_, sharded, wall), = rec.out
+    bcfg = cfg.replace(N_SIMULATION=MESH_TICKS)
+    _, plain, _ = cli.run_single(bcfg, cli.build_argparser().parse_args(
+        argv), device, torch.float32)
+    for f, a, b in zip(plain._fields, sharded, plain):
+        assert torch.equal(a.cpu(), b.cpu()), f"{f} differs sharded"
+    mesh = make_mesh(device=device)
+    try:
+        rng = np.random.default_rng(4)
+        errors = torch.as_tensor(rng.random(64) < 0.2, device=mesh.device)
+        iters = torch.as_tensor(rng.integers(25, 500, size=64),
+                                dtype=torch.int32, device=mesh.device)
+        m = {k: float(v) for k, v in
+             scenario_metrics(errors, iters, mesh).items()}
+        backend = torch.distributed.get_backend()
+    finally:
+        mesh.close()
+    e, i = errors.cpu().numpy(), iters.cpu().numpy()
+    assert m["max_iters"] == i.max()
+    assert abs(m["error_rate"] - e.astype(np.float32).mean()) < 1e-6
+    assert abs(m["mean_iters"] - i.astype(np.float32).mean()) < 1e-3
+    assert_no_kernel("U4 mesh")
+    log(f"U4 --batch {MESH_B} --mesh ({backend}, world size 1), "
+        f"{MESH_TICKS} ticks in {wall:.2f} s: {len(plain._fields)} log "
+        f"leaves equal to the unsharded run; scenario_metrics all-reduced "
+        f"{m} = the plain reductions")
+
+
+def run_util_phases(cfg, device, clock, logs):
+    """U1-U4 in order; returns U1's stage timings."""
+    t = run_stage_timings(cfg, device)
+    run_checkpoint_phase(cfg, device)
+    run_viz_phase(cfg, device, logs)
+    run_mesh_phase(cfg, device)
+    clock.lap("U1-U4")
+    return t
+
+
+# ----------------------------------------------------------------------
 # The full-size batched MPC path (kernels K2 at n = 192, m = 512 and K3)
 # ----------------------------------------------------------------------
 
@@ -2434,6 +2948,9 @@ def main() -> int:
     run_estimator_demo(cfg, device)
     clock.lap("E4, E5")
     run_ddp_phases(cfg, device, clock)
+    h7_logs, _ = run_host_phases(cfg, device, clock)
+    run_util_phases(cfg, device, clock, h7_logs)
+    del h7_logs
     err3, k3, k3_ns0 = check_ns_kernel(cfg, device)
     err4, k4_ms, p4_ms, k4_bound, k4_ref, k4_variants = check_full_kernel(
         cfg, device)

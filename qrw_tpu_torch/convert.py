@@ -14,7 +14,8 @@ DDP or planner MPC carry: MPCState, DDPState, PlannerState), SimState
 (with its Projectiles), DeviceData, MPCLaneState, MPCWarmState,
 MPCBatchState, FleetCarry, RolloutCarry, RolloutLog, Telemetry and the
 solver results (PhaseQPResult, PallasQPResult, QPSolution, MPCResult,
-ILQRResult, DDPResult, PlannerResult), with everything they hold. A carry broadcast to a leading batch axis (B, ...) converts
+ILQRResult, DDPResult, PlannerResult), GamepadState and ReplayLog, with
+everything they hold. A carry broadcast to a leading batch axis (B, ...) converts
 the same way.
 """
 
@@ -31,8 +32,9 @@ def _registry():
     if _REGISTRY is None:
         from qrw_tpu_torch.core import (controller, estimator,
                                         foot_trajectory, footstep, gait,
-                                        kalman, mpc, mpc_ddp,
+                                        joystick, kalman, mpc, mpc_ddp,
                                         mpc_ddp_planner, mpc_lane, wbc)
+        from qrw_tpu_torch.runtime import replay
         from qrw_tpu_torch.ops import ilqr, qp, qp_pallas, qp_phase
         from qrw_tpu_torch.sim import fleet, physics, rollout, terrain
         classes = [
@@ -51,7 +53,8 @@ def _registry():
             terrain.FleetTerrain, mpc.MPCResult, controller.Telemetry,
             rollout.RolloutCarry, rollout.RolloutLog, mpc_ddp.DDPState,
             mpc_ddp.DDPResult, mpc_ddp_planner.PlannerState,
-            mpc_ddp_planner.PlannerResult, ilqr.ILQRResult]
+            mpc_ddp_planner.PlannerResult, ilqr.ILQRResult,
+            joystick.GamepadState, replay.ReplayLog]
         _REGISTRY = {c.__name__: c for c in classes}
     return _REGISTRY
 

@@ -8,22 +8,22 @@ keys). The figures and metrics are made on the host CPU; `--compare`
 (the solver comparison of the reference's analyse_simu scripts,
 eval/compare: every logged MPC cycle re-solved with the QP and the DDP
 backends, warm in the loop and cold) re-solves in float64 on the card
-unless `--cpu` is given.
+unless `--cpu` is given, and so do `--forces` (utils/viz.force_monitor:
+the feet from one batched kinematics call) and `--slider` (utils/viz.
+slider_replay: every MPC cycle re-solved in one batched call).
 
     python -m qrw_tpu_torch.eval.analyze run.npz --plot out     # plotAll
     python -m qrw_tpu_torch.eval.analyze run.npz --estimator    # metrics
     python -m qrw_tpu_torch.eval.analyze run.npz --fk-feet
     python -m qrw_tpu_torch.eval.analyze run.npz --tracking b.npz
     python -m qrw_tpu_torch.eval.analyze run.npz --compare      # QP vs DDP
-
-`--slider` and `--forces` (utils/viz) are not ported yet and exit with
-"not yet ported".
+    python -m qrw_tpu_torch.eval.analyze run.npz --forces 500   # GRF snapshot
+    python -m qrw_tpu_torch.eval.analyze run.npz --slider       # interactive
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -33,11 +33,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--plot", nargs="?", const="qrw_analysis", default=None,
                    metavar="PREFIX", help="save the plotAll figure set")
     p.add_argument("--slider", action="store_true",
-                   help="interactive MPC-prediction scrubber (not ported "
-                        "yet)")
+                   help="interactive MPC-prediction scrubber (needs a GUI)")
     p.add_argument("--forces", nargs="?", const=-1, type=int, default=None,
-                   metavar="TICK", help="ground-reaction-force snapshot "
-                                        "(not ported yet)")
+                   metavar="TICK", help="ground-reaction-force snapshot")
     p.add_argument("--estimator", action="store_true",
                    help="estimator-vs-ground-truth metrics (+figure with "
                         "--plot)")
@@ -45,7 +43,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="re-solve every MPC cycle with the QP and DDP "
                         "backends and report the divergence")
     p.add_argument("--cpu", action="store_true",
-                   help="--compare on the CPU (default: the card)")
+                   help="--compare, --forces and --slider on the CPU "
+                        "(default: the card)")
     p.add_argument("--fk-feet", action="store_true",
                    help="per-foot leg-odometry velocity study")
     p.add_argument("--tracking", nargs="*", default=None, metavar="NPZ",
@@ -58,30 +57,40 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    unported = [name for name, on in [
-        ("--slider", args.slider),
-        ("--forces", args.forces is not None)] if on]
-    if unported:
-        print(f"not yet ported: {', '.join(unported)}", file=sys.stderr)
-        return 2
 
     from qrw_tpu_torch.config import Config
     from qrw_tpu_torch.utils.logger import load_npz
 
     data = load_npz(args.npz)
     cfg = Config()
+    device = "cpu" if args.cpu else "cuda"
     if "_dt_wbc" in data:
         assert abs(float(data["_dt_wbc"]) - cfg.dt_wbc) < 1e-9, \
             "log was recorded at a different control rate"
     print(f"loaded {args.npz}: {data['base_pos'].shape[0]} ticks, "
           f"{len(data)} arrays")
 
-    if args.plot is not None and not args.estimator:
+    if args.plot is not None and not (args.estimator or args.slider
+                                      or args.forces is not None):
         from qrw_tpu_torch.utils.logger import plot_all
         plot_all(data, dt=cfg.dt_wbc, show=args.show,
                  save_prefix=None if args.show else args.plot)
         if not args.show:
             print(f"figures saved as {args.plot}_fig*.png")
+
+    if args.forces is not None:
+        from qrw_tpu_torch.utils.viz import force_monitor
+        tick = None if args.forces < 0 else args.forces
+        save = None if args.show else (args.plot or "qrw_analysis") \
+            + "_forces.png"
+        force_monitor(data, tick=tick, show=args.show, save_path=save,
+                      device=device)
+        if save:
+            print(f"force snapshot saved as {save}")
+
+    if args.slider:
+        from qrw_tpu_torch.utils.viz import slider_replay
+        slider_replay(data, cfg, show=True, device=device)
 
     if args.estimator:
         import numpy as np
@@ -126,7 +135,7 @@ def main(argv=None) -> int:
                                                 compare_solvers_warm,
                                                 summarize)
         from qrw_tpu_torch.sim.fleet import _check_device
-        device = _check_device("cpu" if args.cpu else "cuda")
+        device = _check_device(device)
         ticks = slice(0, data["mpc_xref"].shape[0], cfg.k_mpc)
         xr = torch.as_tensor(data["mpc_xref"][ticks], dtype=torch.float64,
                              device=device)

@@ -9,7 +9,8 @@ of ONE batched rollout (sim/rollout along a leading axis) whose
 
 Outputs per cell: success (no security latch, not fallen), the mean
 forward-velocity tracking error and the mean height error over the
-steady-state window.
+steady-state window. `mesh=` shards the cells over the processes of a
+parallel/mesh.Mesh (the CLI's `--sweep --mesh`).
 
     python -m qrw_tpu_torch.runtime.main --sweep            # on the card
     python -m qrw_tpu_torch.runtime.main --sweep --cpu --ticks 60
@@ -37,14 +38,19 @@ def run_sweep(cfg: Optional[Config] = None,
               vx_grid=np.linspace(0.0, 2.0, 9),
               wyaw_grid=np.linspace(-1.0, 1.0, 5),
               n_ticks: int = 1500, ramp_ticks: int = 500,
-              dtype=torch.float32, device="cuda") -> SweepResult:
+              dtype=torch.float32, device="cuda", mesh=None) -> SweepResult:
     """Run the whole grid as one batched rollout on `device` (the card
     unless the caller asks for the CPU).
 
-    Commands ramp linearly to the target over ramp_ticks, then hold."""
+    Commands ramp linearly to the target over ramp_ticks, then hold.
+    With a mesh (parallel/mesh.make_mesh) the cells are sharded over its
+    processes, each on its own device, and every process gets the whole
+    grid's result."""
     from qrw_tpu_torch.convert import tree_map
     from qrw_tpu_torch.sim.rollout import make_rollout, rollout
     cfg = cfg if cfg is not None else Config()
+    if mesh is not None:
+        device = mesh.device
     ctl, carry1 = make_rollout(cfg, dtype=dtype, device=device)
 
     vx_g, wy_g = np.meshgrid(np.asarray(vx_grid), np.asarray(wyaw_grid),
@@ -55,21 +61,30 @@ def run_sweep(cfg: Optional[Config] = None,
     targets[:, 5] = wy_g.ravel()
     ramp = np.minimum(np.arange(n_ticks) / max(ramp_ticks, 1), 1.0)
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    v_sched = (ramp[:, None, None] * targets[None, :, :]).astype(np_dtype)
-
+    # (B, n_ticks, 6): cells along the leading axis, the one a mesh splits
+    v_sched = torch.as_tensor(
+        (ramp[None, :, None] * targets[:, None, :]).astype(np_dtype),
+        device=device)
     carry = tree_map(lambda a: a.expand((B,) + tuple(a.shape)).clone(),
                      carry1)
-    _, logs = rollout(ctl, carry, n_ticks, v_ref_schedule=v_sched)
-
     # steady-state window: after the ramp, but never empty
     start = min(max(n_ticks - 500, ramp_ticks), n_ticks // 2)
-    vs = torch.as_tensor(v_sched[start:, :, 0].T, device=logs.base_vel.device)
-    err = logs.error.any(dim=1)
-    vx_err = (logs.base_vel[:, start:, 0] - vs).abs().mean(dim=1)
-    z = logs.base_pos[:, start:, 2]
-    h_err = (z - cfg.h_ref).abs().mean(dim=1)
-    fell = z.mean(dim=1) < 0.5 * cfg.h_ref
-    ok = ~(err | fell)
+
+    def cells(c, vs):
+        _, logs = rollout(ctl, c, n_ticks,
+                          v_ref_schedule=vs.transpose(0, 1))
+        err = logs.error.any(dim=1)
+        vx_err = (logs.base_vel[:, start:, 0] - vs[:, start:, 0]).abs() \
+            .mean(dim=1)
+        z = logs.base_pos[:, start:, 2]
+        h_err = (z - cfg.h_ref).abs().mean(dim=1)
+        fell = z.mean(dim=1) < 0.5 * cfg.h_ref
+        return ~(err | fell), vx_err, h_err
+
+    if mesh is not None:
+        from qrw_tpu_torch.parallel.mesh import sharded_vmap
+        cells = sharded_vmap(cells, mesh)
+    ok, vx_err, h_err = cells(carry, v_sched)
 
     shape = vx_g.shape
     host = lambda t: t.cpu().numpy().reshape(shape)

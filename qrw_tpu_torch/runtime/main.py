@@ -37,6 +37,19 @@ velocity-envelope sweep (eval/speed_sweep: a 9 x 5 grid of (vx, wyaw)
 commands as one batched rollout), `--estimator-demo` the estimator-only
 evaluation (eval/estimator_eval.run_demo).
 
+`--host-loop` drives the masterboard-style device facade from the host
+(runtime/host_loop.run_host_loop against sim/device.SimDevice) for
+`--ticks` ticks, then the damping shutdown: `--clone` mirrors every
+command to a second simulated robot, `--gamepad` reads a physical
+gamepad (runtime/gamepad.GamepadReader; needs the `inputs` package),
+`--realtime` paces each tick to 2 ms with the native pacer. `--mesh`
+shards `--batch` (and `--sweep`) over one process per GPU
+(parallel/mesh: world size 1 on the one card, or every process of a
+`torchrun` launch; each rank prints nothing, rank 0 the summary). The
+fleets run without reading `--batch`, `--bumpy` or `--envID`, as the
+JAX entry point's do (with `--envID 1` the lane-major physics refuses
+the thrown spheres, where qrw_tpu asserts).
+
     python -m qrw_tpu_torch.runtime.main
     python -m qrw_tpu_torch.runtime.main --batch 256 --ticks 500
     python -m qrw_tpu_torch.runtime.main --cpu --ticks 20 --batch 2
@@ -47,20 +60,22 @@ evaluation (eval/estimator_eval.run_demo).
     python -m qrw_tpu_torch.runtime.main --fleet-mpc 4096
     python -m qrw_tpu_torch.runtime.main --sweep --ticks 1500
     python -m qrw_tpu_torch.runtime.main --estimator-demo --kf --ticks 500
+    python -m qrw_tpu_torch.runtime.main --host-loop --clone --ticks 500
+    python -m qrw_tpu_torch.runtime.main --host-loop --realtime --ticks 50
+    python -m qrw_tpu_torch.runtime.main --batch 8 --mesh --ticks 100
+    torchrun --nproc-per-node 4 -m qrw_tpu_torch.runtime.main --batch 64 --mesh
 
 Everything runs on the card (`--device cuda`) unless `--cpu` or
 `--device cpu` asks for the CPU. The fleets and `--fleet-mpc` run the
 phase solver whatever the MPC backend, as the JAX entry point's do
-(they never read type_MPC). The modes of the JAX entry point that are
-not ported yet (`--host-loop`, `--mesh`, `--clone`, `--gamepad`,
-`--realtime`, and the fleets with `--batch`, `--bumpy` or
-`--envID`) exit with "not yet ported".
+(they never read type_MPC).
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
+import contextlib
+import io
 import time
 
 TILE = 128      # robots per solver tile: the unit of the early exit
@@ -126,10 +141,20 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="warm cycles for --fleet-mpc")
     p.add_argument("--ddp", action="store_true",
                    help="use the DDP (Crocoddyl-equivalent) MPC backend")
-    # modes of the JAX entry point that the port does not have yet
-    for flag in ("--host-loop", "--mesh", "--clone", "--gamepad",
-                 "--realtime"):
-        p.add_argument(flag, action="store_true")
+    p.add_argument("--host-loop", action="store_true",
+                   help="drive the masterboard-style device facade from "
+                        "the host instead of the batched rollout")
+    p.add_argument("--clone", action="store_true",
+                   help="mirror commands to a second simulated robot "
+                        "(host-loop mode; reference -c option)")
+    p.add_argument("--gamepad", action="store_true",
+                   help="read a physical gamepad (host-loop mode; "
+                        "requires the `inputs` package)")
+    p.add_argument("--realtime", action="store_true",
+                   help="pace the host loop to 500 Hz real time")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard --batch / --sweep over one process per GPU "
+                        "(torch.distributed; world size 1 without torchrun)")
     return p
 
 
@@ -295,9 +320,10 @@ def run_fleet_mpc(cfg, batch: int, seed: int, device: str,
                 n_cycles=n_cycles)
 
 
-def run_single(cfg, args, device: str, dtype):
-    """The single-robot closed loop (or --batch robots): returns (final
-    carry, logs, wall seconds)."""
+def run_single(cfg, args, device: str, dtype, mesh=None):
+    """The single-robot closed loop (or --batch robots, sharded over
+    `mesh`'s processes when one is given): returns (final carry, logs,
+    wall seconds); with a mesh every rank gets the whole batch's."""
     import numpy as np
     import torch
 
@@ -327,11 +353,15 @@ def run_single(cfg, args, device: str, dtype):
         q = sim.q.clone()
         q[:, 7:] += dq
         carry = carry._replace(sim_state=sim._replace(q=q))
+    run = lambda c: rollout(ctl, c, n_ticks, f_ext_schedule=f_ext,
+                            terrain=terrain, perfect_estimator=args.perfect)
+    if mesh is not None and args.batch:
+        from qrw_tpu_torch.parallel.mesh import sharded_vmap
+        run = sharded_vmap(run, mesh)
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    out, logs = rollout(ctl, carry, n_ticks, f_ext_schedule=f_ext,
-                        terrain=terrain, perfect_estimator=args.perfect)
+    out, logs = run(carry)
     sync()
     return out, logs, time.perf_counter() - t0
 
@@ -377,20 +407,67 @@ def save_and_plot(cfg, args, logs) -> None:
         print(f"figures saved as {args.plot}_fig*.png")
 
 
+def run_host_loop_cli(cfg, args, device: str, dtype) -> int:
+    """--host-loop: qrw_tpu's host-driven loop with the damping shutdown,
+    its two summary lines and exit code (1 on an abort, latch or
+    timeout)."""
+    import numpy as np
+
+    from qrw_tpu_torch.runtime.host_loop import run_host_loop
+    from qrw_tpu_torch.sim.device import SimDevice
+
+    clone = None
+    if args.clone:
+        clone = SimDevice(cfg, dtype=dtype, device=device)
+        clone.Init(q_init=cfg.q_init)
+    gamepad = None
+    if args.gamepad:
+        from qrw_tpu_torch.runtime.gamepad import GamepadReader
+        gamepad = GamepadReader()
+    try:
+        res = run_host_loop(cfg, n_ticks=cfg.N_SIMULATION, clone=clone,
+                            gamepad=gamepad, realtime=args.realtime,
+                            shutdown=True, gait=args.gait, dtype=dtype,
+                            torch_device=device)
+    finally:
+        if gamepad is not None:
+            gamepad.stop()
+    print(f"host loop: {res.n_ticks} ticks, startup_abort="
+          f"{res.startup_abort}, error={res.error}, timeout={res.timeout}")
+    if res.n_ticks:
+        bp = res.q_log[-1]
+        print(f"final pos [{bp[0]:.3f} {bp[1]:.3f} {bp[2]:.3f}], "
+              f"max |tau_ff| {np.abs(res.tau_log).max():.2f}")
+    return 0 if not (res.startup_abort or res.error or res.timeout) else 1
+
+
+def _run_batch_modes(cfg, args, device: str, dtype, mesh=None) -> int:
+    """--sweep, or the single-robot mode (one robot or --batch), with
+    their summaries; `mesh` shards the batch."""
+    if args.sweep:
+        from qrw_tpu_torch.eval.speed_sweep import plot_envelope, run_sweep
+        t0 = time.perf_counter()
+        res = run_sweep(cfg, n_ticks=cfg.N_SIMULATION, dtype=dtype,
+                        device=device, mesh=mesh)
+        print(f"sweep: {int(res.success.sum())}/{res.success.size} cells "
+              f"succeeded; max vx err {res.vx_err.max():.3f} m/s "
+              f"({cfg.N_SIMULATION} ticks in "
+              f"{time.perf_counter() - t0:.1f}s on {device})")
+        if args.plot is not None:
+            plot_envelope(res, show=False,
+                          save_path=args.plot + "_envelope.png")
+            print(f"envelope saved as {args.plot}_envelope.png")
+        return 0
+    _, logs, wall = run_single(cfg, args, device, dtype, mesh)
+    code = single_summary(cfg, args, logs, wall)
+    if args.save is not None or args.plot is not None:
+        save_and_plot(cfg, args, logs)
+    return code
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     fleets = bool(args.fleet or args.hetero)
-    unported = [name for name, on in [
-        ("--host-loop", args.host_loop), ("--mesh", args.mesh),
-        ("--clone", args.clone), ("--gamepad", args.gamepad),
-        ("--realtime", args.realtime),
-        ("--batch with --fleet or --hetero", fleets and args.batch),
-        ("--bumpy with --fleet or --hetero", fleets and args.bumpy),
-        ("--envID with --fleet or --hetero",
-         fleets and args.envID not in (None, 0))] if on]
-    if unported:
-        print(f"not yet ported: {', '.join(unported)}", file=sys.stderr)
-        return 2
 
     import numpy as np
     import torch
@@ -420,32 +497,28 @@ def main(argv=None) -> int:
               f"conv {r['conv']:.4f} (cold {r['cold_conv']:.4f}; "
               f"{r['n_cycles']} warm cycles, synchronized per run)")
         return 0
-    if args.sweep and not fleets:
-        from qrw_tpu_torch.eval.speed_sweep import plot_envelope, run_sweep
-        t0 = time.perf_counter()
-        res = run_sweep(cfg, n_ticks=cfg.N_SIMULATION, dtype=dtype,
-                        device=device)
-        print(f"sweep: {int(res.success.sum())}/{res.success.size} cells "
-              f"succeeded; max vx err {res.vx_err.max():.3f} m/s "
-              f"({cfg.N_SIMULATION} ticks in "
-              f"{time.perf_counter() - t0:.1f}s on {device})")
-        if args.plot is not None:
-            plot_envelope(res, show=False,
-                          save_path=args.plot + "_envelope.png")
-            print(f"envelope saved as {args.plot}_envelope.png")
-        return 0
-    if args.estimator_demo and not fleets:
-        from qrw_tpu_torch.eval.estimator_eval import run_demo
-        m = run_demo(cfg, n_ticks=cfg.N_SIMULATION, kf=args.kf, dtype=dtype,
-                     device=device)
-        print("estimator metrics:", {k: round(v, 5) for k, v in m.items()})
-        return 0
     if not fleets:
-        _, logs, wall = run_single(cfg, args, device, dtype)
-        code = single_summary(cfg, args, logs, wall)
-        if args.save is not None or args.plot is not None:
-            save_and_plot(cfg, args, logs)
-        return code
+        if args.host_loop:
+            return run_host_loop_cli(cfg, args, device, dtype)
+        if args.estimator_demo and not args.sweep:
+            from qrw_tpu_torch.eval.estimator_eval import run_demo
+            m = run_demo(cfg, n_ticks=cfg.N_SIMULATION, kf=args.kf,
+                         dtype=dtype, device=device)
+            print("estimator metrics:",
+                  {k: round(v, 5) for k, v in m.items()})
+            return 0
+        if not (args.mesh and (args.sweep or args.batch)):
+            return _run_batch_modes(cfg, args, device, dtype)
+        from qrw_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(device=device)
+        try:
+            # rank 0 reports; the others run their shard silently
+            with (contextlib.nullcontext() if mesh.rank == 0 else
+                  contextlib.redirect_stdout(io.StringIO())):
+                return _run_batch_modes(cfg, args, str(mesh.device), dtype,
+                                        mesh)
+        finally:
+            mesh.close()
     n_cycles = max(1, cfg.N_SIMULATION // cfg.k_mpc)
     n_ticks = n_cycles * cfg.k_mpc
     if args.hetero:

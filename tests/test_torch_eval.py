@@ -141,8 +141,8 @@ def test_plot_all_13_figures(demo, tmp_path):
 
 def test_analyze_saved_file(demo, tmp_path, capsys):
     """eval/analyze on a file qrw_tpu wrote: the estimator metrics and
-    figures, the per-foot odometry and tracking figures; the modes not
-    ported yet exit 2."""
+    figures, the per-foot odometry and tracking figures; --slider and
+    --forces (utils/viz, on the CPU with --cpu) exit 0."""
     import matplotlib.pyplot as plt
     _, jlogs = demo
     path = jlog.save_npz(jlogs, str(tmp_path / "run.npz"), CFG)
@@ -156,8 +156,9 @@ def test_analyze_saved_file(demo, tmp_path, capsys):
         assert os.path.exists(pre + suffix), suffix
     assert tan.main([path, "--plot", pre]) == 0
     assert os.path.exists(pre + "_fig12.png")
-    for flag in (["--slider"], ["--forces", "3"]):
-        assert tan.main([path] + flag) == 2, flag
+    for flag in (["--slider"], ["--forces", "3", "--plot", pre]):
+        assert tan.main([path, "--cpu"] + flag) == 0, flag
+    assert os.path.exists(pre + "_forces.png")
     plt.close("all")
 
 

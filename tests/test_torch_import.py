@@ -78,23 +78,32 @@ def test_unported_branches_raise(branch):
 
 
 def test_cli_unported_modes_exit():
-    """Modes of the JAX entry point the port does not have yet exit with
-    2; the single-robot mode (no mode flag) and the evaluation modes are
-    ported and, asked for on CUDA on a host without a card, raise
-    instead of running on the CPU."""
+    """No mode of the JAX entry point is left unported: the flags that
+    exited with 2 and "not yet ported" (--host-loop, --mesh, --clone,
+    --gamepad, --realtime, and the fleets with --batch, --bumpy or
+    --envID) now run, and, asked for on CUDA on a host without a card,
+    raise instead of running on the CPU, as the single-robot mode and
+    the evaluation modes do (the fleets through torch's own "Torch not
+    compiled with CUDA enabled" assertion)."""
+    import contextlib
+    import io
+
     from qrw_tpu_torch.runtime import main
-    for argv in (["--host-loop"], ["--mesh"], ["--clone"],
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card; the check is for CPU hosts")
+    for argv in (["--host-loop"], ["--mesh", "--batch", "2"], ["--clone"],
                  ["--gamepad"], ["--realtime"], ["--sweep", "--mesh"],
                  ["--bumpy", "--fleet", "128"],
                  ["--fleet", "128", "--envID", "1"],
-                 ["--hetero", "384", "--batch", "2"]):
-        assert main.main(argv) == 2, argv
-    if not torch.cuda.is_available():
-        for argv in (["--ticks", "1"], ["--ticks", "1", "--kf"],
-                     ["--fleet-mpc", "64"], ["--sweep", "--ticks", "1"],
-                     ["--estimator-demo", "--ticks", "1"]):
-            with pytest.raises(RuntimeError, match="CUDA"):
-                main.main(argv)
+                 ["--hetero", "384", "--batch", "2"],
+                 ["--ticks", "1"], ["--ticks", "1", "--kf"],
+                 ["--fleet-mpc", "64"], ["--sweep", "--ticks", "1"],
+                 ["--estimator-demo", "--ticks", "1"]):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), \
+                pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+            main.main(argv + ["--ticks", "1"])
+        assert "not yet ported" not in err.getvalue(), argv
 
 
 def test_cli_rescue_defaults_to_the_jax_capacity(monkeypatch):
@@ -171,6 +180,27 @@ def test_stairs_asset_copy_equals_jax_package():
     with open(os.path.join(ROOT, "qrw_tpu_torch", "sim",
                            "bauzil_stairs_hf.npz"), "rb") as f:
         assert f.read() == want
+
+
+def test_ipc_source_copy_equals_native():
+    """qrw_tpu_torch/csrc/qrw_ipc.cpp (runtime/ipc's library source) is
+    a byte-equal copy of native/qrw_ipc.cpp."""
+    with open(os.path.join(ROOT, "native", "qrw_ipc.cpp"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(ROOT, "qrw_tpu_torch", "csrc", "qrw_ipc.cpp"),
+              "rb") as f:
+        assert f.read() == want
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The module lists of the two packages: every qrw_tpu module has a
+    qrw_tpu_torch module at the same path."""
+    def modules(pkg):
+        root = os.path.join(ROOT, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) for f in files
+                if f.endswith(".py")}
+    assert modules("qrw_tpu") - modules("qrw_tpu_torch") == set()
 
 
 def test_qp_oracle_copy_equals_tests_oracle():
