@@ -16,9 +16,21 @@ Phases (any failure ends the run with a non-zero exit):
    stop_at_eps on. 2b: the same at cap 48 (n = 144, m = 240) on a
    phase-sorted batch of the heterogeneous fleet's union phase set
    (trot, walk, bounding), with the clusters the card holds at once.
-   2c: the same at cap 64 (n = 192, m = 320, tile 32, the only tile a
-   cap-64 block fits) on the trot -> static union set (201 classes:
-   parity_320 --switch static) at B = 1024.
+   2c: the same at cap 64 (n = 192, m = 320, tile 32 over a cluster of
+   8) on the trot -> static union set (201 classes: parity_320 --switch
+   static) at B = 1024.
+   2d. K1 at the JAX package's own accelerator tile, 512 problems over a
+   cluster of 16 blocks: bench.py's phase-mode batch (phases 0-7 x 512,
+   seed 0, B = 4096, cap 32), checked and timed as in 2, with the
+   clusters the card holds at once. Then, warm with stop_at_eps on, K1
+   at tile 512 and at tile 128 each against the plain version at its
+   own tile, and the two tiles against each other: every lane's first
+   passing check (`iters`) is the same, but a tile of 128 whose problems
+   all pass stops where the tile of 512 runs on, so the tiles leave
+   other iterates; the lanes and tiles that differ are counted (at
+   least one). 2e: the other two shapes only a cluster of 16 holds, at
+   B = 1024: cap 48 at tile 256 on the union set of 2b, cap 64 at tile
+   64 on the set of 2c, checked and timed as there.
 3. Kernel K2 (qrw_tpu_torch/csrc/qp_admm.cu) against its plain version
    on the card, on rescue problems assembled as
    core/mpc.solve_mpc_batch_reduced assembles them from the same phase
@@ -86,8 +98,11 @@ Phases (any failure ends the run with a non-zero exit):
    every cycle matched to a phase class, K2 (cone variant, n = 192) and
    K3 launched at least once a warm cycle, K1 at cap 32 (trot) or only
    at cap 64 (switch).
-   E2. The CLI's --fleet-mpc 4096 (tile 128, 10 warm cycles): solves/s
-   and conv >= 0.9, one K1 launch a cycle plus the cold solve.
+   E2. The CLI's --fleet-mpc 4096 and --fleet-mpc 8192 (10 warm cycles
+   each) in the JAX entry point's layout at its tile of 512: 1024
+   problems over phases 0 and 8, then all 16 phases at 512 each.
+   solves/s and conv >= 0.9, one K1 launch a cycle plus the cold solve,
+   every one at tile 512.
    E3. The CLI's --sweep on its full 9 x 5 grid for 600 ticks (cut from
    1500): cells that succeeded, the largest vx error, no kernel launch.
    E4. S3 with the 18-state Kalman estimator (cfg.kf_enabled), and the
@@ -126,7 +141,8 @@ Phases (any failure ends the run with a non-zero exit):
    H1. runtime/ipc: the library built with g++ from
    qrw_tpu_torch/csrc/qrw_ipc.cpp; 200 mailbox round trips across a
    spawned process (median, max); the pacer's lateness over 200 periods
-   of 2 ms and its overruns.
+   of 2 ms and its overruns, at its default spin tail (100 us) and then
+   at spin tails of 100 us, 500 us and 1 ms with no work in the loop.
    H2. sim/device.SimDevice on the card, float32 and float64: a 50-tick
    PD hold of q_init (height within 0.05 of 0.24 m), put_on_the_floor
    for 0.2 s (gap < 0.15 rad), the float64 hold against the CPU (S3's
@@ -253,7 +269,16 @@ DDP_TOL = {torch.float64: (1e-8, 1e-9), torch.float32: (1e-3, 1e-4)}
 # H100 80GB HBM3, 700.00 W)
 DDP_PLAN_TOL64 = {"x_f_mpc": 1e-7}
 PLANNER_TOL64 = {"default": 1e-7}
-CAP64_TILE = 32                 # K1's one tile at cap 64
+CAP64_TILE = 32                 # K1's tile at cap 64 over a cluster of 8
+# The shapes that only a cluster of 16 blocks holds: cap 32 at the JAX
+# package's accelerator tile (bench.py's phase mode and --fleet-mpc),
+# checked on bench.py's phase-mode batch (run_phase_mode: phases 0-7 x
+# 512 at B = 4096); cap 48 at tile 256 and cap 64 at tile 64 at B = 1024.
+TILE512 = 512
+TILE512_B = 4096
+TILE512_PHASES = list(range(8))
+CAP48_TILE16 = 256
+CAP64_TILE16 = 64
 PARITY_CYCLES = 32              # E1: parity_320 cut from 320 cycles
 PARITY_ARGV = (["--cycles", str(PARITY_CYCLES)],
                ["--cycles", str(PARITY_CYCLES), "--switch", "static"])
@@ -261,7 +286,8 @@ PARITY_ARGV = (["--cycles", str(PARITY_CYCLES)],
 # torque_budget_Nm), and the relaxed chain's convergence over a capture
 # (qrw_tpu's 320-cycle trot measured 1.0, PARITY.md, TPU v5e history)
 PARITY_CONV_BAR = 0.95
-FLEET_MPC_B = 4096              # E2: --fleet-mpc at the bench's width
+FLEET_MPC_BS = (4096, 8192)     # E2: --fleet-mpc at the bench's width,
+                                # and the first batch with all 16 phases
 FLEET_MPC_CYCLES = 10           # the CLI's --fleet-cycles default
 SWEEP_TICKS = 600               # E3: --sweep cut from 1500 ticks
 DEMO_TICKS = 200                # E5: --estimator-demo cut from 3000 ticks
@@ -543,8 +569,10 @@ def k1_near_threshold(args, kw, got, want, lanes):
     return near
 
 
-def check_kernel(cfg, ps, device, B, tile, phase_fs=None):
-    """Phase 2 (and 2b at cap 48 with the union set's phase_fs). Returns
+def check_kernel(cfg, ps, device, B, tile, phase_fs=None, phase_ids=None):
+    """Phase 2 (and 2b at cap 48 with the union set's phase_fs; phase_ids,
+    one a tile, default every second class, or every seventh of a union
+    set so that it reaches every gait). Returns
     (max_abs_err, (ms, lo, hi), (plain_ms, lo, hi), (bound_ms, bound_by),
     extra) of the main path's configuration (warm, stop_at_eps on);
     extra holds the launch geometry, the warm stop_at_eps-off time, the
@@ -581,7 +609,9 @@ def check_kernel(cfg, ps, device, B, tile, phase_fs=None):
     n_phases = B // tile
     n_set = ps.data.Kbar_inv.shape[0]
     step = 2 if phase_fs is None else 7     # the union set: every gait
-    phase_ids = [(step * i) % n_set for i in range(n_phases)]
+    if phase_ids is None:
+        phase_ids = [(step * i) % n_set for i in range(n_phases)]
+    assert len(phase_ids) == n_phases, (phase_ids, n_phases)
     xr, fs = phase_batch(cfg, phase_ids, tile, np.random.default_rng(0),
                          phase_fs)
     phases_of = torch.as_tensor(phase_ids, dtype=torch.int32, device=device)
@@ -675,6 +705,82 @@ def check_kernel(cfg, ps, device, B, tile, phase_fs=None):
             elif warm:
                 extra["stop_off_ms"] = k_ms[0]
     return worst, timing[0], timing[1], timing[2], extra
+
+
+def check_tile_answer(cfg, ps, device, B=TILE512_B, small=TILE):
+    """Phase 2d, second part: on bench.py's phase-mode batch, warm from a
+    cold plain solve on a 1 mm shift, stop_at_eps on, K1 at tile 512
+    (a cluster of 16) and at tile `small` (a cluster of 8), each against
+    the plain version at its own tile (flags equal, iteration counts
+    equal but for k1_near_threshold's, x / y / z within REL_TOL). Then
+    the two tiles against each other. A lane's `iters` is its first
+    passing check, which the tile does not change; what the tile changes
+    is where a tile stops: a tile of `small` whose problems all pass
+    exits there, while the tile of 512 that holds it runs on for the
+    problems that have not passed. Counted: the lanes whose x moved by
+    more than REL_TOL of the largest entry, and the small tiles that
+    exited early; at least one lane must differ. Returns the counts."""
+    from qrw_tpu_torch.core import mpc_lane as ml
+    from qrw_tpu_torch.ops import qp_phase
+
+    xr, fs = phase_batch(cfg, TILE512_PHASES, B // len(TILE512_PHASES),
+                         np.random.default_rng(0))
+    xr2 = xr.copy()
+    xr2[:, 0, :] += 0.001
+    t = lambda a: torch.as_tensor(a, device=device)
+    sols = {}
+    for tile in (TILE512, small):
+        phases_of = torch.as_tensor(
+            np.repeat(TILE512_PHASES, B // len(TILE512_PHASES) // tile),
+            dtype=torch.int32, device=device)
+        prob = lambda x: [a.contiguous() for a in ml.phase_problem(
+            cfg, t(x), t(fs), ps, phases_of, tile)[3:5]]
+        if tile == TILE512:
+            BlS, q = prob(xr)
+            cold = qp_phase.solve_plain(q, BlS, ps.data, phases_of,
+                                        tile=tile)
+        BlS, q = prob(xr2)
+        args = (q, BlS, ps.data, phases_of)
+        kw = dict(n_iters=300, tile=tile, stop_at_eps=True,
+                  x0=cold.x.contiguous(), y0=cold.y.contiguous())
+        got = qp_phase.solve(*args, **kw)
+        want = qp_phase.solve_plain(*args, **kw)
+        torch.cuda.synchronize()
+        it_diff = got.iters != want.iters
+        near = k1_near_threshold(args, kw, got, want, it_diff)
+        errs = {f: float((getattr(got, f) - getattr(want, f)).abs().max())
+                for f in ("x", "y", "z")}
+        log(f"K1 tile {tile} vs plain at tile {tile}, B={B} warm "
+            f"stop_at_eps=True: conv {float(got.converged.float().mean()):.4f}"
+            f"; flag mismatches conv "
+            f"{int((got.converged != want.converged).sum())} iters "
+            f"{int(it_diff.sum())} (near the tolerance {int(near.sum())}); "
+            + " ".join(f"max|d{f}| {e:.2e}" for f, e in errs.items()))
+        assert bool((got.converged == want.converged).all())
+        assert not bool((it_diff & ~near).any())
+        for f, e in errs.items():
+            scale = max(1.0, float(getattr(want, f).abs().max()))
+            assert e <= REL_TOL * scale, (tile, f, e, scale)
+        sols[tile] = got
+    a, b = sols[TILE512], sols[small]
+    exited = b.converged.reshape(-1, small).all(dim=1)
+    one_exited = a.converged.reshape(-1, TILE512).all(dim=1)
+    dx = (a.x - b.x).abs().amax(dim=0)
+    moved = dx > REL_TOL * max(1.0, float(a.x.abs().max()))
+    n_it = int((a.iters != b.iters).sum())
+    n_moved = int(moved.sum())
+    log(f"K1 tile {TILE512} vs tile {small} on the same {B} problems (warm, "
+        f"stop_at_eps): lanes whose iters differ {n_it} (the first "
+        f"passing check does not depend on the tile); tiles that exited "
+        f"early: {int(one_exited.sum())} of {len(one_exited)} at tile "
+        f"{TILE512}, {int(exited.sum())} of {len(exited)} at tile {small}; "
+        f"lanes whose x differs by more than {REL_TOL} of its scale "
+        f"{n_moved} (max {float(dx.max()):.3e}), in tiles of {small} that "
+        f"exited early {int(moved.reshape(-1, small)[exited].sum())}")
+    assert n_it == 0 and n_moved >= 1, (n_it, n_moved)
+    return dict(lanes_differ=n_moved, iters_differ=n_it,
+                small_tiles_exited=int(exited.sum()),
+                tiles512_exited=int(one_exited.sum()))
 
 
 def rescue_problems(cfg, R, device, shift=0.0, gait="trot"):
@@ -1107,6 +1213,7 @@ def reset_counts():
     """Every kernel's launch counts to 0."""
     from qrw_tpu_torch.ops import qp_pallas, qp_phase
     qp_phase.CAP_LAUNCHES = {}
+    qp_phase.TILE_LAUNCHES = {}
     qp_pallas.DENSE_KERNEL_LAUNCHES = 0
     qp_pallas.CONE_LAUNCHES_BY_N = {}
     qp_pallas.NS_KERNEL_LAUNCHES = 0
@@ -1121,6 +1228,7 @@ class Counts(NamedTuple):
     k2_cone: dict           # of them the cone variant's by n
     k3: int                 # K3 launches, both variants
     k3_general: int         # of them the general variant's
+    k1_tiles: dict          # K1 launches by (cap, tile)
 
 
 def read_counts() -> Counts:
@@ -1131,7 +1239,8 @@ def read_counts() -> Counts:
     dense = qp_pallas.DENSE_KERNEL_LAUNCHES
     return Counts(sum(caps.values()), caps, dense + sum(cone.values()),
                   dense, cone, qp_pallas.NS_KERNEL_LAUNCHES,
-                  qp_pallas.NS_GENERAL_KERNEL_LAUNCHES)
+                  qp_pallas.NS_GENERAL_KERNEL_LAUNCHES,
+                  dict(qp_phase.TILE_LAUNCHES))
 
 
 def run_hetero_path(cfg, device, calibration):
@@ -1494,26 +1603,36 @@ def run_parity(cfg, device):
 
 
 def run_fleet_mpc_path(cfg, device):
-    """E2: the CLI's --fleet-mpc 4096 (10 warm cycles): solves/s and
-    conv, one K1 launch a cycle plus the cold solve."""
+    """E2: the CLI's --fleet-mpc at each of FLEET_MPC_BS (10 warm cycles)
+    in the JAX entry point's layout at tile 512 (--fleet-mpc 4096: 1024
+    problems over phases 0 and 8; 8192: all 16 phases at 512 each):
+    solves/s and conv, one K1 launch a cycle plus the cold solve, all at
+    tile 512. Returns ({batch: result}, K1 launches at tile 512)."""
     from qrw_tpu_torch.runtime import main as cli
 
-    reset_counts()
-    with Recorder(cli, "run_fleet_mpc") as rec:
-        code = cli.main(["--fleet-mpc", str(FLEET_MPC_B), "--fleet-cycles",
-                         str(FLEET_MPC_CYCLES), "--device", device])
-    n = read_counts()
-    r, = rec.out
-    log(f"E2 --fleet-mpc {FLEET_MPC_B}: B solved {r['B']} at tile "
-        f"{r['tile']}, {r['solves_s']:.1f} solves/s "
-        f"({1e3 * r['s_per_cycle']:.3f} ms a warm cycle), conv "
-        f"{r['conv']:.4f} (cold {r['cold_conv']:.4f}); K1 launches {n.k1} "
-        f"by cap {n.k1_caps}")
-    assert code == 0 and r["B"] == FLEET_MPC_B
-    assert r["conv"] >= CONV_BAR, r
-    assert n.k1 == FLEET_MPC_CYCLES + 1 and n.k1_caps == {32: n.k1}, n
-    assert n.k2 == n.k3 == 0, n
-    return r
+    want = {4096: (1024, [0, 8]), 8192: (8192, list(range(16)))}
+    out, k1_512 = {}, 0
+    for batch in FLEET_MPC_BS:
+        reset_counts()
+        with Recorder(cli, "run_fleet_mpc") as rec:
+            code = cli.main(["--fleet-mpc", str(batch), "--fleet-cycles",
+                             str(FLEET_MPC_CYCLES), "--device", device])
+        n = read_counts()
+        r, = rec.out
+        log(f"E2 --fleet-mpc {batch}: B solved {r['B']} at tile "
+            f"{r['tile']} over phases {r['phases']}, {r['solves_s']:.1f} "
+            f"solves/s ({1e3 * r['s_per_cycle']:.3f} ms a warm cycle), "
+            f"conv {r['conv']:.4f} (cold {r['cold_conv']:.4f}); K1 "
+            f"launches {n.k1} by (cap, tile) {n.k1_tiles}")
+        assert code == 0 and (r["B"], r["phases"]) == want[batch], r
+        assert r["tile"] == cli.FLEET_MPC_TILE == TILE512, r
+        assert r["conv"] >= CONV_BAR, r
+        assert n.k1 == FLEET_MPC_CYCLES + 1, n
+        assert n.k1_tiles == {(32, TILE512): n.k1}, n
+        assert n.k2 == n.k3 == 0, n
+        out[batch] = r
+        k1_512 += n.k1_tiles[32, TILE512]
+    return out, k1_512
 
 
 def run_sweep_path(cfg, device):
@@ -1819,6 +1938,7 @@ HOST_TICKS = 120                # H3, H4, H7: the JAX tests' 120 ticks
 GAMEPAD_TICKS = 20              # H3's gamepad + clone run (JAX test: 60)
 REALTIME_TICKS = 50             # H5
 PACER_PERIODS = 200             # H1
+PACER_SPINS = (100e-6, 500e-6, 1e-3)    # H1: the pacer's spin tails [s]
 ECHOES = 200                    # H1: mailbox round trips
 FLOOR_S = 0.2                   # H2: put_on_the_floor (JAX test: 1 s)
 # H7: base_pos, m (float32). The first run on the card measured 0 (the
@@ -1903,7 +2023,21 @@ def run_ipc_phase():
         overruns = pacer.overruns
     finally:
         pacer.close()
+    sweep = {}
+    for spin in PACER_SPINS:
+        pacer = ipc.Pacer(0.002, spin)
+        try:
+            late_s = np.asarray([pacer.wait()
+                                 for _ in range(PACER_PERIODS)]) * 1e6
+            sweep[spin] = (float(np.median(late_s)), float(late_s.max()),
+                           pacer.overruns)
+        finally:
+            pacer.close()
     assert_no_kernel("H1 IPC")
+    log("H1 pacer, 2 ms period, no work in the loop, by spin tail: "
+        + "; ".join(f"{1e6 * spin:.0f} us: lateness median {m:.1f} us, "
+                    f"max {mx:.1f} us, overruns {o}"
+                    for spin, (m, mx, o) in sweep.items()))
     log(f"H1 IPC library {os.path.basename(so)} {built} (g++, from "
         f"qrw_tpu_torch/csrc/qrw_ipc.cpp); mailbox round trip "
         f"across a spawned process, {ECHOES} echoes: median "
@@ -1912,7 +2046,7 @@ def run_ipc_phase():
         f"{np.median(late):.1f} us, max {late.max():.1f} us, overruns "
         f"{overruns}")
     return dict(rtt_us=float(np.median(rtt)),
-                pacer_late_us=float(np.median(late)))
+                pacer_late_us=float(np.median(late)), pacer_sweep=sweep)
 
 
 def _hold(cfg, dev, n):
@@ -2902,6 +3036,10 @@ def main() -> int:
 
     err, k_ms, p_ms, k_bound, k1_geo = check_kernel(cfg, ps, device,
                                                     B_KERNEL, TILE)
+    # 2d: the JAX package's accelerator tile over a cluster of 16
+    err512, k512_ms, p512_ms, k512_bound, k512_geo = check_kernel(
+        cfg, ps, device, TILE512_B, TILE512, phase_ids=TILE512_PHASES)
+    k512_geo.update(check_tile_answer(cfg, ps, device))
     # the heterogeneous fleet's union phase set (make_hetero_fleet's)
     ups = ml.union_phase_fsteps(cfg, [ml.gait_phase_fsteps(cfg, g)
                                       for g in HETERO_GAITS])
@@ -2911,6 +3049,9 @@ def main() -> int:
     # ... and at the heterogeneous fleet's own B: 32 tiles, 15 resident
     err48, k48_ms, p48_ms, k48_bound, k48_geo = check_kernel(
         cfg, ps48, device, HETERO_B, TILE, phase_fs=ups)
+    # 2e: cap 48 at tile 256 over a cluster of 16
+    err48t, k48t_ms, p48t_ms, k48t_bound, k48t_geo = check_kernel(
+        cfg, ps48, device, B_KERNEL, CAP48_TILE16, phase_fs=ups)
     # the trot -> static union set (parity_320 --switch static): cap 64
     ups64 = ml.union_phase_fsteps(cfg, [
         ml.gait_phase_fsteps(cfg, "trot"), ml.gait_phase_fsteps(cfg, "static"),
@@ -2919,6 +3060,9 @@ def main() -> int:
     assert ps64.cap == 64 and ups64.shape[0] == 201, (ps64.cap, ups64.shape)
     err64, k64_ms, p64_ms, k64_bound, k64_geo = check_kernel(
         cfg, ps64, device, B_KERNEL, CAP64_TILE, phase_fs=ups64)
+    # 2e: cap 64 at tile 64 over a cluster of 16
+    err64t, k64t_ms, p64t_ms, k64t_bound, k64t_geo = check_kernel(
+        cfg, ps64, device, B_KERNEL, CAP64_TILE16, phase_fs=ups64)
     del ps64
     err2, k2_ms, p2_ms, k2_bound, k2_variants = check_rescue_kernel(cfg,
                                                                     device)
@@ -2941,7 +3085,7 @@ def main() -> int:
     clock.lap("S3")
     _, parity_counts, _ = run_parity(cfg, device)
     clock.lap("E1")
-    run_fleet_mpc_path(cfg, device)
+    _, k1_tile512 = run_fleet_mpc_path(cfg, device)
     run_sweep_path(cfg, device)
     clock.lap("E2, E3")
     check_card_vs_cpu(cfg.replace(kf_enabled=True), device, label="E4")
@@ -2966,6 +3110,14 @@ def main() -> int:
         "launches": launches, "max_abs_err": err,
         "ms": k_ms[0], "plain_ms": p_ms[0], "bound_ms": k_bound[0],
         "bound_by": k_bound[1], "library_ms": None, **k1_geo}, {
+        "name": "qp_phase_tile512", "route": "cuda",
+        "source": "qrw_tpu_torch/csrc/qp_phase.cu",
+        "replaces": "qrw_tpu/ops/qp_phase.py:233",
+        "launches": k1_tile512, "path": "--fleet-mpc (E2)",
+        "max_abs_err": err512, "B": TILE512_B, "tile": TILE512,
+        "ms": k512_ms[0], "plain_ms": p512_ms[0], "bound_ms": k512_bound[0],
+        "bound_by": k512_bound[1], "library_ms": None,
+        "share": k512_bound[0] / k512_ms[0], **k512_geo}, {
         "name": "qp_phase_cap48", "route": "cuda",
         "source": "qrw_tpu_torch/csrc/qp_phase.cu",
         "replaces": "qrw_tpu/ops/qp_phase.py:233",
@@ -2979,7 +3131,14 @@ def main() -> int:
                          "clusters_resident":
                              k48s_geo["clusters_resident"],
                          "sms": k48s_geo["sms"],
-                         "excused": k48s_geo["excused"]}}, {
+                         "excused": k48s_geo["excused"]},
+        # no path of either package gives cap 48 at tile 256: 0 launches
+        f"tile{CAP48_TILE16}": {
+            "launches": 0, "max_abs_err": err48t, "B": B_KERNEL,
+            "ms": k48t_ms[0], "plain_ms": p48t_ms[0],
+            "bound_ms": k48t_bound[0], "bound_by": k48t_bound[1],
+            "library_ms": None, "share": k48t_bound[0] / k48t_ms[0],
+            **k48t_geo}}, {
         "name": "qp_phase_cap64", "route": "cuda",
         "source": "qrw_tpu_torch/csrc/qp_phase.cu",
         "replaces": "qrw_tpu/ops/qp_phase.py:233",
@@ -2987,7 +3146,14 @@ def main() -> int:
         "max_abs_err": err64, "B": B_KERNEL, "tile": CAP64_TILE,
         "ms": k64_ms[0], "plain_ms": p64_ms[0], "bound_ms": k64_bound[0],
         "bound_by": k64_bound[1], "library_ms": None,
-        "share": k64_bound[0] / k64_ms[0], **k64_geo}, {
+        "share": k64_bound[0] / k64_ms[0], **k64_geo,
+        # no path of either package gives cap 64 at tile 64: 0 launches
+        f"tile{CAP64_TILE16}": {
+            "launches": 0, "max_abs_err": err64t, "B": B_KERNEL,
+            "ms": k64t_ms[0], "plain_ms": p64t_ms[0],
+            "bound_ms": k64t_bound[0], "bound_by": k64t_bound[1],
+            "library_ms": None, "share": k64t_bound[0] / k64t_ms[0],
+            **k64t_geo}}, {
         "name": "qp_admm", "route": "cuda",
         "source": "qrw_tpu_torch/csrc/qp_admm.cu",
         "replaces": "qrw_tpu/ops/qp_pallas.py:55",

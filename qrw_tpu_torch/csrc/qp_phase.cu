@@ -23,11 +23,16 @@
 //
 // What this design does about it:
 // * A tile (the unit of the stop_at_eps exit) is spread over a cluster of
-//   CLUSTER = 8 thread blocks on 8 SMs, PB = tile / 8 problems a block,
-//   so B = 1024 at tile 128 runs 64 blocks, not 8. At each check the
-//   blocks AND their problems' flags, exchange the ANDs through
-//   distributed shared memory between two cluster barriers, and the whole
-//   tile stops together, as the Pallas kernel's tile does.
+//   CL thread blocks on CL SMs, PB = tile / CL problems a block, so
+//   B = 1024 at tile 128 runs 64 blocks, not 8. CL is 8 (the portable
+//   cluster size) wherever a block of tile / 8 problems is compiled, and
+//   16 (the H100's non-portable maximum) for the tiles whose block of
+//   tile / 8 would not fit in shared memory: cap 32 at tile 512 (the JAX
+//   package's tile on its accelerator), cap 48 at tile 256 and cap 64 at
+//   tile 64. At each check the blocks AND their problems' flags, exchange
+//   the ANDs through distributed shared memory between two cluster
+//   barriers, and the whole tile stops together, as the Pallas kernel's
+//   tile does.
 // * Every block stages the tile's phase data (Kbar^-1 with a padded row
 //   stride n + 1, G1 and G2 with stride cap + 1, l, u) and its problems'
 //   q, slabs, x, z, y and A x in shared memory; the iterates never leave
@@ -54,13 +59,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float X_CLIP = 100.0f;
 constexpr float Y_CLIP = 1.0e4f;
-constexpr int CLUSTER = 8;       // blocks a tile (portable cluster size)
 constexpr int NRED = 6;          // pri, dua, |A x|, |z|, |H x|, |A'y|
 
 struct Params {
@@ -74,10 +80,12 @@ struct Params {
 // (trot, pacing, bounding), 48 = 3N (walk's 3-stance rows, and any phase
 // set that holds walk) and 64 = 4N (phase sets with 4-stance rows: the
 // static gait and the mixed windows of a switch to it), the last at 4
-// problems a block only (tile 32: 224,896 B of shared memory a block;
-// tile 64 would need 267,264 B). Problems a thread (PPT), threads a slot
-// (PH) and threads a block (NT = CAP PH: 8, 12, 6 or 8 warps) for PB
-// problems a block, and the shape constants of the cap.
+// problems a block only (tile 32, or 64 over 16 blocks: 224,896 B of
+// shared memory a block; 8 problems would need 267,264 B). Problems a
+// thread (PPT), threads a slot (PH) and threads a block (NT = CAP PH: 8,
+// 12, 6 or 8 warps) for PB problems a block, and the shape constants of
+// the cap. The cluster size CL (blocks a tile) is the kernel's third
+// template parameter.
 template <int CAP_, int PB>
 struct Geo {
   static constexpr int CAP = CAP_;
@@ -149,7 +157,7 @@ __device__ void slot_max(float (&v)[G::PPT][NV_], float* red, float* out) {
   __syncthreads();
 }
 
-template <int CAP, int PB>
+template <int CAP, int PB, int CL>
 __global__ void __launch_bounds__(Geo<CAP, PB>::NT)
 qp_phase_kernel(Params p, const float* __restrict__ Qg,
                 const float* __restrict__ blst,
@@ -186,8 +194,8 @@ qp_phase_kernel(Params p, const float* __restrict__ Qg,
   __shared__ int vote;
 
   const int tid = threadIdx.x;
-  const int tile_id = blockIdx.x / CLUSTER;
-  const int col0 = tile_id * p.tile + (blockIdx.x % CLUSTER) * PB;
+  const int tile_id = blockIdx.x / CL;
+  const int col0 = tile_id * p.tile + (blockIdx.x % CL) * PB;
   const int ph_id = phases_of[tile_id];
   if (ph_id < 0 || ph_id >= p.n_phases) __trap();  // a phase id out of range
 
@@ -421,7 +429,7 @@ qp_phase_kernel(Params p, const float* __restrict__ Qg,
       if (tid == 0) vote = all;
       cluster.sync();  // every block's vote written
       int tile_all = 1;
-      for (int r = 0; r < CLUSTER; ++r)
+      for (int r = 0; r < CL; ++r)
         tile_all &= *cluster.map_shared_rank(&vote, r);
       cluster.sync();  // every vote read before the next is written
       if (tile_all) break;
@@ -447,32 +455,68 @@ qp_phase_kernel(Params p, const float* __restrict__ Qg,
 #undef SLAB
 }
 
-// Problems a block for a tile, or 0 where no block shape takes it. The
-// wrapper (ops/qp_phase.py::launch_geometry) refuses a block whose shared
-// memory exceeds what a block can have, so no kernel is compiled for one
-// (cap 48 at 32 problems, cap 64 above 4): the dispatch below returns -1
-// there.
-int block_problems(int cap, int tile) {
-  if ((cap != 32 && cap != 48 && cap != 64) || tile % CLUSTER) return 0;
-  const int pb = tile / CLUSTER;
-  return (pb == 4 || pb == 8 || pb == 16 || pb == 32) ? pb : 0;
+template <int V>
+using I = std::integral_constant<int, V>;
+
+// The compiled instances: calls f(I<CAP>(), I<PB>(), I<CL>()) for the one
+// at cap, PB problems a block and a cluster of CL blocks and returns what
+// f returns, or -1 where none is compiled. The wrapper
+// (ops/qp_phase.py::launch_geometry) refuses a block whose shared memory
+// exceeds what a block can have, so none is compiled for one (cap 48 at
+// 32 problems, cap 64 above 4); a cluster of 16 is compiled only where a
+// cluster of 8 cannot hold the tile: cap 32 at tile 512, cap 48 at tile
+// 256, cap 64 at tile 64.
+template <class F>
+int dispatch(int cap, int pb, int cl, F f) {
+  if (cl == 8) {
+    if (cap == 32) switch (pb) {
+      case 4: return f(I<32>(), I<4>(), I<8>());
+      case 8: return f(I<32>(), I<8>(), I<8>());
+      case 16: return f(I<32>(), I<16>(), I<8>());
+      case 32: return f(I<32>(), I<32>(), I<8>());
+    }
+    if (cap == 48) switch (pb) {
+      case 4: return f(I<48>(), I<4>(), I<8>());
+      case 8: return f(I<48>(), I<8>(), I<8>());
+      case 16: return f(I<48>(), I<16>(), I<8>());
+    }
+    if (cap == 64 && pb == 4) return f(I<64>(), I<4>(), I<8>());
+  }
+  if (cl == 16) {
+    if (cap == 32 && pb == 32) return f(I<32>(), I<32>(), I<16>());
+    if (cap == 48 && pb == 16) return f(I<48>(), I<16>(), I<16>());
+    if (cap == 64 && pb == 4) return f(I<64>(), I<4>(), I<16>());
+  }
+  return -1;
+}
+
+// Problems a block for a tile, and its cluster size into *cl: a cluster
+// of 8 where its block is compiled, else one of 16; 0 where neither is.
+int block_problems(int cap, int tile, int* cl) {
+  for (int c = 8; c <= 16; c *= 2)
+    if (tile % c == 0 &&
+        dispatch(cap, tile / c, c, [](auto, auto, auto) { return 0; }) == 0) {
+      *cl = c;
+      return tile / c;
+    }
+  return 0;
 }
 
 int block_threads(int cap, int pb) {
   return cap * (pb > 8 ? 8 : pb);
 }
 
-template <int CAP, int PB>
+template <int CAP, int PB, int CL>
 cudaLaunchConfig_t launch_config(int B, int tile, size_t smem,
                                  cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((B / tile) * CLUSTER, 1, 1);
+  cfg.gridDim = dim3((B / tile) * CL, 1, 1);
   cfg.blockDim = dim3(Geo<CAP, PB>::NT, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = CLUSTER;
+  attr->val.clusterDim.x = CL;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -480,38 +524,47 @@ cudaLaunchConfig_t launch_config(int B, int tile, size_t smem,
   return cfg;
 }
 
-// Sets the kernel's shared-memory attribute; with `clusters` non-null,
-// stores how many clusters of the launch can be resident at once.
-template <int CAP, int PB>
+// Sets the kernel's shared-memory attribute, and for a cluster above the
+// portable 8 blocks the non-portable cluster size, which both the
+// occupancy query and the launch need; with `clusters` non-null, stores
+// how many clusters of the launch can be resident at once.
+template <int CAP, int PB, int CL>
 int prepare(int B, int tile, cudaStream_t stream, int* clusters) {
   const size_t smem = sizeof(float) * smem_floats(CAP, PB, Geo<CAP, PB>::NT);
   cudaError_t e = cudaFuncSetAttribute(
-      qp_phase_kernel<CAP, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      qp_phase_kernel<CAP, PB, CL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
+  if (CL > 8) {
+    e = cudaFuncSetAttribute(qp_phase_kernel<CAP, PB, CL>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e != cudaSuccess) return (int)e;
+  }
   if (clusters) {
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg =
-        launch_config<CAP, PB>(B, tile, smem, stream, &attr);
-    e = cudaOccupancyMaxActiveClusters(clusters, qp_phase_kernel<CAP, PB>,
-                                       &cfg);
+        launch_config<CAP, PB, CL>(B, tile, smem, stream, &attr);
+    e = cudaOccupancyMaxActiveClusters(clusters,
+                                       qp_phase_kernel<CAP, PB, CL>, &cfg);
   }
   return (int)e;
 }
 
-template <int CAP, int PB>
+template <int CAP, int PB, int CL>
 int launch(const Params& p, cudaStream_t stream, const float* q,
            const float* blst, const float* x0, const float* y0,
            const float* kinv, const float* g1, const float* g2,
            const int* phases_of, const float* lo, const float* hi, float* x,
            float* y, float* z, float* res) {
-  const int e = prepare<CAP, PB>(p.B, p.tile, stream, nullptr);
+  const int e = prepare<CAP, PB, CL>(p.B, p.tile, stream, nullptr);
   if (e != 0) return e;
   const size_t smem = sizeof(float) * smem_floats(CAP, PB, Geo<CAP, PB>::NT);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
-      launch_config<CAP, PB>(p.B, p.tile, smem, stream, &attr);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, qp_phase_kernel<CAP, PB>, p, q,
+      launch_config<CAP, PB, CL>(p.B, p.tile, smem, stream, &attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, qp_phase_kernel<CAP, PB, CL>, p,
+                                       q,
                                        blst,
                                        x0, y0, kinv, g1, g2, phases_of, lo,
                                        hi, x, y, z, res);
@@ -527,10 +580,11 @@ extern "C" {
 // cluster size, out[2] threads a block, out[3] dynamic shared memory a
 // block in bytes. Returns 0, or -1 where no block shape takes the tile.
 int qrw_qp_phase_geometry(int cap, int tile, int* out) {
-  const int pb = block_problems(cap, tile);
+  int cl = 0;
+  const int pb = block_problems(cap, tile, &cl);
   if (pb == 0) return -1;
   out[0] = pb;
-  out[1] = CLUSTER;
+  out[1] = cl;
   out[2] = block_threads(cap, pb);
   out[3] = (int)(sizeof(float) * smem_floats(cap, pb, block_threads(cap, pb)));
   return 0;
@@ -541,20 +595,12 @@ int qrw_qp_phase_geometry(int cap, int tile, int* out) {
 // CUDA error code, or -1 where no kernel takes the tile.
 int qrw_qp_phase_max_active_clusters(int cap, int tile, int B,
                                      int* clusters) {
-  const int pb = block_problems(cap, tile);
-  if (cap == 32) switch (pb) {
-    case 4: return prepare<32, 4>(B, tile, 0, clusters);
-    case 8: return prepare<32, 8>(B, tile, 0, clusters);
-    case 16: return prepare<32, 16>(B, tile, 0, clusters);
-    case 32: return prepare<32, 32>(B, tile, 0, clusters);
-  }
-  if (cap == 48) switch (pb) {
-    case 4: return prepare<48, 4>(B, tile, 0, clusters);
-    case 8: return prepare<48, 8>(B, tile, 0, clusters);
-    case 16: return prepare<48, 16>(B, tile, 0, clusters);
-  }
-  if (cap == 64 && pb == 4) return prepare<64, 4>(B, tile, 0, clusters);
-  return -1;
+  int cl = 0;
+  const int pb = block_problems(cap, tile, &cl);
+  return dispatch(cap, pb, cl, [&](auto C, auto P, auto L) {
+    return prepare<decltype(C)::value, decltype(P)::value,
+                   decltype(L)::value>(B, tile, 0, clusters);
+  });
 }
 
 // Pointers are device pointers except w12 (host, 12 floats: wtop then
@@ -578,24 +624,13 @@ int qrw_qp_phase_solve(const float* q, const float* blst, const float* x0,
   p.n_phases = n_phases;
   if (B % tile) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-#define QRW_LAUNCH(CAP, PB)                                                   \
-  launch<CAP, PB>(p, s, q, blst, x0, y0, kinv, g1, g2, phases_of, lo, hi, x,  \
-                  y, z, res)
-  const int pb = block_problems(cap, tile);
-  if (cap == 32) switch (pb) {
-    case 4: return QRW_LAUNCH(32, 4);
-    case 8: return QRW_LAUNCH(32, 8);
-    case 16: return QRW_LAUNCH(32, 16);
-    case 32: return QRW_LAUNCH(32, 32);
-  }
-  if (cap == 48) switch (pb) {
-    case 4: return QRW_LAUNCH(48, 4);
-    case 8: return QRW_LAUNCH(48, 8);
-    case 16: return QRW_LAUNCH(48, 16);
-  }
-  if (cap == 64 && pb == 4) return QRW_LAUNCH(64, 4);
-#undef QRW_LAUNCH
-  return -1;
+  int cl = 0;
+  const int pb = block_problems(cap, tile, &cl);
+  return dispatch(cap, pb, cl, [&](auto C, auto P, auto L) {
+    return launch<decltype(C)::value, decltype(P)::value,
+                  decltype(L)::value>(p, s, q, blst, x0, y0, kinv, g1, g2,
+                                      phases_of, lo, hi, x, y, z, res);
+  });
 }
 
 }  // extern "C"

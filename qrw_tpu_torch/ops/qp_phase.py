@@ -34,10 +34,11 @@ import torch
 X_CLIP = 100.0          # primal safeguard box [N]
 Y_CLIP = 1.0e4          # dual safeguard box
 
-# Counts launches of the CUDA kernel (one per `solve` call on CUDA
-# tensors) by cap. chip_smoke.py resets it before a fleet run and reads
-# it after.
+# Count launches of the CUDA kernel (one per `solve` call on CUDA
+# tensors) by cap, and by (cap, tile). chip_smoke.py resets them before a
+# run and reads them after.
 CAP_LAUNCHES = {}
+TILE_LAUNCHES = {}
 
 
 class PhaseQPData(NamedTuple):
@@ -306,14 +307,17 @@ def _cfunc():
     return lib
 
 
-# The kernel spreads a tile over a cluster of CLUSTER thread blocks, each
-# holding tile // CLUSTER problems; it is compiled for these block sizes
-# and for three caps of stance slots (csrc/qp_phase.cu): 32 (trot,
-# pacing, bounding), 48 (walk's 3-stance rows, and any phase set holding
-# walk) and 64 (4-stance rows: the static gait and the mixed windows of a
-# switch to it), the last at tile 32 only: a larger tile's block does not
-# fit in shared memory (launch_geometry).
-CLUSTER = 8
+# The kernel spreads a tile over a cluster of thread blocks, each holding
+# tile // cluster problems; it is compiled for these block sizes and for
+# three caps of stance slots (csrc/qp_phase.cu): 32 (trot, pacing,
+# bounding), 48 (walk's 3-stance rows, and any phase set holding walk)
+# and 64 (4-stance rows: the static gait and the mixed windows of a
+# switch to it). The cluster is the portable 8 blocks where a block of
+# tile // 8 problems fits in shared memory, else the H100's non-portable
+# 16: cap 32 at tile 512 (the JAX package's tile on its accelerator),
+# cap 48 at tile 256, cap 64 at tile 64 (launch_geometry). Larger tiles
+# are refused: cap 32 at 1024, cap 48 at 512, cap 64 at 128 and above.
+CLUSTERS = (8, 16)
 KERNEL_CAP = (32, 48, 64)
 BLOCK_PROBLEMS = (4, 8, 16, 32)
 # A block's dynamic shared memory can be at most 227 KiB on the H100
@@ -332,36 +336,53 @@ class LaunchGeometry(NamedTuple):
     smem_bytes: int          # dynamic shared memory a block
 
 
-def launch_geometry(cap: int, tile: int, B: int) -> LaunchGeometry:
-    """K1's launch geometry for B problems of `cap` stance slots in tiles
-    of `tile`: CLUSTER blocks a tile, tile // CLUSTER problems a block,
-    one thread per (slot, problem) up to 8 problems, cap * 8 threads a
-    block above. Raises ValueError on a shape the kernel does not take
-    (solve_plain takes any): a cap other than 32, 48 or 64, a tile whose
-    block is not 4-32 problems, or a block whose shared memory exceeds
-    MAX_SMEM_BYTES (cap 48 at tile 256, cap 64 above tile 32)."""
-    if cap not in KERNEL_CAP:
-        raise ValueError(f"qp_phase kernel: cap {cap}, the kernel is "
-                         f"compiled for caps {KERNEL_CAP}")
-    if tile % CLUSTER or tile // CLUSTER not in BLOCK_PROBLEMS:
-        raise ValueError(f"qp_phase kernel: tile {tile} is not one of "
-                         f"{[CLUSTER * p for p in BLOCK_PROBLEMS]}")
-    if B < tile or B % tile:
-        raise ValueError(f"qp_phase kernel: batch {B} is not a positive "
-                         f"multiple of the tile {tile}")
-    pb = tile // CLUSTER
-    ppt = pb // 8 if pb > 8 else 1
-    threads = cap * (pb // ppt)
+def _block(cap: int, pb: int):
+    """(threads, shared-memory bytes) of a block of pb problems at cap:
+    one thread per (slot, problem) up to 8 problems, cap * 8 threads
+    above; the phase's Kbar^-1, G1, G2, l, u beside the problems'
+    iterates and scratch (csrc/qp_phase.cu::smem_floats)."""
+    threads = cap * min(pb, 8)
     n, m = 3 * cap, 5 * cap
     floats = (n * (n + 1) + 2 * cap * (cap + 1) + 2 * m
               + pb * (n + 3 * m + n + 9 * cap + 6 * cap + n)
               + (threads // 32) * 6 * pb + 6 * pb + 2 * pb)
-    if 4 * floats > MAX_SMEM_BYTES:
-        raise ValueError(f"qp_phase kernel: cap {cap} at tile {tile} needs "
-                         f"{4 * floats} B of shared memory a block, more "
-                         f"than the {MAX_SMEM_BYTES} B a block can have")
-    return LaunchGeometry(pb, CLUSTER, threads, (B // tile) * CLUSTER,
-                          4 * floats)
+    return threads, 4 * floats
+
+
+def launch_geometry(cap: int, tile: int, B: int) -> LaunchGeometry:
+    """K1's launch geometry for B problems of `cap` stance slots in tiles
+    of `tile`: a cluster of 8 blocks a tile where a block of tile // 8
+    problems is compiled and fits in MAX_SMEM_BYTES, else a cluster of
+    16 (tile // 16 problems a block) where that one does. Raises
+    ValueError on a shape the kernel does not take (solve_plain takes
+    any): a cap other than 32, 48 or 64, a batch that is not whole
+    tiles, or a tile that neither cluster holds, with the shared memory
+    its block would need at a cluster of 16 (cap 32 at tile 1024, cap 48
+    at tile 512, cap 64 at tile 128 and above)."""
+    if cap not in KERNEL_CAP:
+        raise ValueError(f"qp_phase kernel: cap {cap}, the kernel is "
+                         f"compiled for caps {KERNEL_CAP}")
+    if B < tile or B % tile:
+        raise ValueError(f"qp_phase kernel: batch {B} is not a positive "
+                         f"multiple of the tile {tile}")
+    for cl in CLUSTERS:
+        pb = tile // cl
+        if tile % cl == 0 and pb in BLOCK_PROBLEMS:
+            threads, smem = _block(cap, pb)
+            if smem <= MAX_SMEM_BYTES:
+                return LaunchGeometry(pb, cl, threads, (B // tile) * cl,
+                                      smem)
+    cl = CLUSTERS[-1]
+    if tile % cl == 0 and tile // cl >= BLOCK_PROBLEMS[0]:
+        smem = _block(cap, tile // cl)[1]
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"qp_phase kernel: cap {cap} at tile {tile} needs {smem} B "
+                f"of shared memory a block ({tile // cl} problems a block "
+                f"over a cluster of {cl}), more than the {MAX_SMEM_BYTES} "
+                f"B a block can have")
+    raise ValueError(f"qp_phase kernel: tile {tile} is not one of "
+                     f"{sorted({c * p for c in CLUSTERS for p in BLOCK_PROBLEMS})}")
 
 
 _CLUSTERS_CHECKED = set()   # (cap, tile, B) whose cluster fits the card
@@ -369,7 +390,8 @@ _CLUSTERS_CHECKED = set()   # (cap, tile, B) whose cluster fits the card
 
 def max_active_clusters(tile: int, B: int, cap: int = 32) -> int:
     """Clusters of a B-problem launch that the card can hold at once
-    (cudaOccupancyMaxActiveClusters)."""
+    (cudaOccupancyMaxActiveClusters at the launch's own cluster size,
+    16 blocks where launch_geometry says so)."""
     lib = _cfunc()
     out = ctypes.c_int(0)
     err = lib.qrw_qp_phase_max_active_clusters(cap, tile, B,
@@ -396,7 +418,7 @@ def _check(name, t, shape, dtype, device):
 
 def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
             tile, check_every, stop_at_eps):
-    """Launch the kernel on the current stream: a cluster of CLUSTER
+    """Launch the kernel on the current stream: a cluster of 8 or 16
     blocks per tile (`launch_geometry`). Returns (x, y, z, res (5, B))
     with res rows pri, dua, n1, n2, it_conv."""
     n, B = q.shape
@@ -425,10 +447,13 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
         raise RuntimeError(f"qp_phase kernel: the compiled launch geometry "
                            f"{tuple(built)} is not {geo}")
     if (cap, tile, B) not in _CLUSTERS_CHECKED:
-        if max_active_clusters(tile, B, cap) < 1:
+        n_cl = max_active_clusters(tile, B, cap)
+        if n_cl < 1:
             raise RuntimeError(f"qp_phase kernel: the card cannot hold one "
                                f"cluster of {geo.cluster} blocks of "
-                               f"{geo.smem_bytes} B")
+                               f"{geo.smem_bytes} B (cap {cap}, tile "
+                               f"{tile}): cudaOccupancyMaxActiveClusters "
+                               f"gave {n_cl}")
         _CLUSTERS_CHECKED.add((cap, tile, B))
     x = torch.empty((n, B), dtype=f32, device=dev)
     y = torch.empty((m, B), dtype=f32, device=dev)
@@ -453,6 +478,7 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
         raise RuntimeError(f"qp_phase kernel launch failed: CUDA error "
                            f"{err}")
     CAP_LAUNCHES[cap] = CAP_LAUNCHES.get(cap, 0) + 1
+    TILE_LAUNCHES[cap, tile] = TILE_LAUNCHES.get((cap, tile), 0) + 1
     return x, y, z, res
 
 

@@ -31,8 +31,8 @@ second run from the same initial carry.
 
 `--fleet-mpc B` is the MPC-fleet service demo: B trot problems sorted
 over the 16 gait offsets, solved cold and then warm-cycled through K1
-(tiles of 128 on the card, 4 on the CPU, as the JAX entry point's CPU
-tile), printing solves/s and convergence. `--sweep` runs the
+in the JAX entry point's layout (tiles of 512 on the card, 4 on the
+CPU: `fleet_mpc_layout`), printing solves/s and convergence. `--sweep` runs the
 velocity-envelope sweep (eval/speed_sweep: a 9 x 5 grid of (vx, wyaw)
 commands as one batched rollout), `--estimator-demo` the estimator-only
 evaluation (eval/estimator_eval.run_demo).
@@ -79,6 +79,8 @@ import io
 import time
 
 TILE = 128      # robots per solver tile: the unit of the early exit
+FLEET_MPC_TILE = 512    # --fleet-mpc's tile on the card (the JAX entry
+                        # point's on its accelerator, bench.py's tile)
 CPU_TILE = 4    # --fleet-mpc's tile on the CPU (the JAX entry point's)
 
 
@@ -263,16 +265,32 @@ def hetero_summary(carry, cyc, meta, tile: int) -> dict:
         rescued=int(cyc.rescued.sum()))
 
 
+def fleet_mpc_layout(batch: int, n_phases: int, tile: int):
+    """--fleet-mpc's batch layout, as the JAX entry point computes it
+    (qrw_tpu/runtime/main.py, _run_fleet_mpc): `per` problems for each
+    phase, a whole number of tiles of it; every phase of the gait when
+    the batch holds a tile of each, else phases 0 and n_phases // 2.
+    Returns (B, per, phase_ids, phases_of): the batch actually solved
+    and the phase of each of its tiles."""
+    import numpy as np
+
+    per = max(tile, (batch // (n_phases * tile)) * tile)
+    phase_ids = (list(range(n_phases)) if batch >= n_phases * tile
+                 else [0, n_phases // 2])
+    B = per * len(phase_ids)
+    return B, per, phase_ids, np.repeat(phase_ids, per // tile)
+
+
 def run_fleet_mpc(cfg, batch: int, seed: int, device: str,
                   n_cycles: int = 10) -> dict:
     """The MPC-fleet service demo: `batch` trot problems sorted over the
-    gait's 16 offsets (whole tiles of one offset each; two offsets when
-    B is under 16 tiles), solved cold on ops/qp_phase at 300 iterations,
+    gait's 16 offsets in the JAX entry point's layout
+    (`fleet_mpc_layout`), solved cold on ops/qp_phase at 300 iterations,
     then warm-cycled `n_cycles` times on a 1 mm moving state, as the JAX
-    entry point does. The tile is 4 on the CPU (the JAX entry point's CPU
-    tile) and 128 on the card (K1 takes tiles 32-256 at cap 32; without
-    stop_at_eps the tile does not change the result). Returns the batch
-    actually solved (B rounded to whole tiles per offset), the tile,
+    entry point does. The tile is the JAX entry point's: 512 on the card
+    (FLEET_MPC_TILE), 4 on the CPU. So --fleet-mpc 4096 solves 1024
+    problems over phases 0 and 8, and --fleet-mpc 8192 all 16 phases at
+    512 each. Returns the batch actually solved, the tile, the phases,
     solves/s and the mean warm conv."""
     import numpy as np
     import torch
@@ -281,11 +299,9 @@ def run_fleet_mpc(cfg, batch: int, seed: int, device: str,
     from qrw_tpu_torch.sim.fleet import _check_device
 
     cuda = torch.device(_check_device(device)).type == "cuda"
-    tile = TILE if cuda else CPU_TILE
-    P = cfg.n_steps
-    per = max(tile, (batch // (P * tile)) * tile)
-    phase_ids = list(range(P)) if batch >= P * tile else [0, P // 2]
-    B = per * len(phase_ids)
+    tile = FLEET_MPC_TILE if cuda else CPU_TILE
+    B, per, phase_ids, phases_of = fleet_mpc_layout(batch, cfg.n_steps,
+                                                    tile)
     rng = np.random.default_rng(seed)
     phase_fs = ml.trot_phase_fsteps(cfg)
     xr = np.zeros((12, cfg.n_steps + 1, B), np.float32)
@@ -295,7 +311,6 @@ def run_fleet_mpc(cfg, batch: int, seed: int, device: str,
     fs = np.zeros((cfg.N_gait, 12, B), np.float32)
     for i, p_id in enumerate(phase_ids):
         fs[:, :, i * per:(i + 1) * per] = phase_fs[p_id][:, :, None]
-    phases_of = np.repeat(phase_ids, per // tile)
     ps = ml.build_phase_data(cfg, phase_fs, device=device)
     xrt = torch.as_tensor(xr, device=device)
     fst = torch.as_tensor(fs, device=device)
@@ -315,7 +330,8 @@ def run_fleet_mpc(cfg, batch: int, seed: int, device: str,
         convs.append(sol.converged.float().mean())
     sync()
     dt = (time.perf_counter() - t0) / n_cycles
-    return dict(B=B, tile=tile, solves_s=B / dt, s_per_cycle=dt,
+    return dict(B=B, tile=tile, phases=phase_ids, solves_s=B / dt,
+                s_per_cycle=dt,
                 conv=float(torch.stack(convs).mean()), cold_conv=cold,
                 n_cycles=n_cycles)
 
@@ -493,7 +509,8 @@ def main(argv=None) -> int:
         r = run_fleet_mpc(cfg, args.fleet_mpc, args.seed, device,
                           args.fleet_cycles)
         print(f"fleet MPC service: {r['B']} scenarios/cycle (tile "
-              f"{r['tile']}, on {device}), {r['solves_s']:.0f} solves/s, "
+              f"{r['tile']}, on {device}) over phases {r['phases']}, "
+              f"{r['solves_s']:.0f} solves/s, "
               f"conv {r['conv']:.4f} (cold {r['cold_conv']:.4f}; "
               f"{r['n_cycles']} warm cycles, synchronized per run)")
         return 0

@@ -27,6 +27,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+# the staircase heightfield shipped with the package (make_stairs)
+STAIRS_HF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "bauzil_stairs_hf.npz")
+
 
 class Terrain(NamedTuple):
     heights: torch.Tensor   # (H, W) height samples [m]
@@ -119,8 +123,7 @@ def _bauzil_heights():
     """The Bauzil staircase (the reference's bauzil_stairs.stl under its
     URDF transform) rasterized into a 2 cm max-z heightfield: returns
     (heights (H, W) f32, cell, origin (2,))."""
-    path = os.path.join(os.path.dirname(__file__), "bauzil_stairs_hf.npz")
-    with np.load(path) as f:
+    with np.load(STAIRS_HF) as f:
         return (np.asarray(f["heights"], np.float32), float(f["cell"]),
                 np.asarray(f["origin"], np.float32))
 

@@ -93,14 +93,15 @@ def test_solve_plain_cap64(cap64):
 
 def test_k1_launch_geometry_cap64():
     """At cap 64 a block holds the phase's 192 x 193 Kbar^-1 beside its
-    problems: tile 32 (4 problems, 256 threads a block) fits the 227 KiB
-    a block can have; tile 64 does not and raises with the byte count,
-    as do the larger tiles."""
+    problems: 4 problems (256 threads a block) fit the 227 KiB a block
+    can have, at tile 32 over a cluster of 8 and at tile 64 over a
+    cluster of 16; a block of 8 does not: tile 128 raises with the byte
+    count, as do the larger tiles."""
     geo = tqph.launch_geometry(64, 32, 1024)
     assert geo.smem_bytes == 224896 <= tqph.MAX_SMEM_BYTES
     assert (geo.problems_per_block, geo.threads, geo.grid) == (4, 256, 256)
     with pytest.raises(ValueError, match="267264 B of shared memory"):
-        tqph.launch_geometry(64, 64, 1024)
-    for tile in (128, 256):
+        tqph.launch_geometry(64, 128, 1024)
+    for tile in (256, 512):
         with pytest.raises(ValueError, match="B of shared memory"):
             tqph.launch_geometry(64, tile, 1024)

@@ -193,10 +193,10 @@ def test_cone_dispatch_has_no_fallback():
 
 
 @pytest.mark.parametrize("cap,tile,B", [(32, 16, 1024), (32, 48, 960),
-                                        (32, 96, 960), (32, 512, 1024),
+                                        (32, 96, 960), (32, 2048, 4096),
                                         (32, 1024, 1024), (24, 128, 1024),
                                         (32, 128, 1000), (32, 128, 64),
-                                        (48, 256, 4096), (64, 128, 1024),
+                                        (48, 512, 4096), (64, 128, 1024),
                                         (48, 16, 1024)])
 def test_k1_launch_geometry_refuses(cap, tile, B):
     """Tiles that K1's cluster launch cannot take raise ValueError."""
@@ -211,7 +211,7 @@ def test_k1_launch_geometry(tile):
     reaches 64 SMs, not the 8 of one block a tile."""
     B = 1024
     geo = tqph.launch_geometry(32, tile, B)
-    assert geo.cluster == tqph.CLUSTER == 8
+    assert geo.cluster == tqph.CLUSTERS[0] == 8
     assert geo.problems_per_block * geo.cluster == tile
     assert geo.grid == (B // tile) * geo.cluster
     assert geo.threads % 32 == 0 and geo.threads <= 1024
@@ -225,8 +225,10 @@ def test_k1_launch_geometry(tile):
 def test_k1_launch_geometry_cap48(tile, smem):
     """At cap 48 (n = 144, m = 240) a block holds the phase's 144 x 145
     Kbar^-1 beside its problems: tiles 32-128 fit the 227 KiB a block can
-    have (tile 128 with ~3 kB to spare), tile 256 does not and raises
-    with the reason. B = 4096 at tile 128 is 32 tiles, 256 blocks."""
+    have over a cluster of 8 (tile 128 with ~3 kB to spare); tile 256
+    takes a cluster of 16 blocks of 16 problems, and tile 512's block of
+    32 does not fit and raises with the reason. B = 4096 at tile 128 is
+    32 tiles, 256 blocks."""
     B = 4096
     geo = tqph.launch_geometry(48, tile, B)
     assert geo.smem_bytes == smem <= tqph.MAX_SMEM_BYTES == 227 * 1024
@@ -235,7 +237,7 @@ def test_k1_launch_geometry_cap48(tile, smem):
     assert geo.threads % 32 == 0
     assert geo.grid == (B // tile) * 8
     with pytest.raises(ValueError, match="354112 B of shared memory"):
-        tqph.launch_geometry(48, 256, B)
+        tqph.launch_geometry(48, 512, B)
 
 
 def test_cone_kernel_n144_is_the_reduced_cone_only():
