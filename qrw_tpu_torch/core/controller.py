@@ -49,6 +49,7 @@ from qrw_tpu_torch.core.joystick import v_ref_profile
 from qrw_tpu_torch.core.state_planner import compute_reference_states
 from qrw_tpu_torch.ops import qp, rbd
 from qrw_tpu_torch.ops.rotations import rot_z, rpy_to_quat, rpy_to_rot
+from qrw_tpu_torch.utils.profiling import host_read, span, spanned
 
 SHOULDERS = np.array([[0.1946, 0.1946, -0.1946, -0.1946],
                       [0.14695, -0.14695, 0.14695, -0.14695],
@@ -173,6 +174,7 @@ def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 
 
+@spanned("pre")
 def compute_pre(ctl: Controller, state: ControllerState, device: DeviceData,
                 k: int, v_ref6=None, joystick_code: int = 0,
                 perfect_estimator: bool = False, est_fk=None) -> PreMPC:
@@ -216,10 +218,12 @@ def compute_pre(ctl: Controller, state: ControllerState, device: DeviceData,
                                 ctl.patterns)
 
     refresh = (k % k_mpc == 0) and k != 0
+    with host_read("pre_shoulders"):
+        shoulders = torch.as_tensor(SHOULDERS, dtype=dtype, device=dev)
     fs_state, o_target, fsteps = update_footsteps(
-        cfg, torch.as_tensor(SHOULDERS, dtype=dtype, device=dev), gait,
-        state.footstep, refresh, float(k_mpc - k % k_mpc), q[..., 0:7],
-        h_v[..., 0:6], v_ref[..., 0:6])
+        cfg, shoulders, gait, state.footstep, refresh,
+        float(k_mpc - k % k_mpc), q[..., 0:7], h_v[..., 0:6],
+        v_ref[..., 0:6])
 
     swing_target = state.planner_target if cfg.mpc_planner else o_target
     ft_state = update_foot_trajectory(cfg, gait, state.foot_traj, k,
@@ -245,6 +249,7 @@ class WBCInputs(NamedTuple):
     feet_a_cmd: torch.Tensor  # (..., 3, 4)
 
 
+@spanned("wbc.inputs")
 def wbc_inputs(ctl: Controller, state: ControllerState, pre: PreMPC,
                x_f_mpc) -> WBCInputs:
     """WBC target assembly + base-frame foot references. Of the WBC
@@ -265,8 +270,9 @@ def wbc_inputs(ctl: Controller, state: ControllerState, pre: PreMPC,
                   - 2.0 * cr(w_ref, prev_v).transpose(-1, -2))
     feet_v_cmd = (oRhT @ ft_state.velocity - v_ref[..., 0:3, None]
                   - cr(w_ref, prev_p).transpose(-1, -2))
-    h_ref_vec = torch.tensor([0.0, 0.0, cfg.h_ref], dtype=v_ref.dtype,
-                             device=v_ref.device)
+    with host_read("wbc_inputs_href"):
+        h_ref_vec = torch.tensor([0.0, 0.0, cfg.h_ref], dtype=v_ref.dtype,
+                                 device=v_ref.device)
     feet_p_cmd = oRhT @ (ft_state.position - h_ref_vec[:, None]
                          - pre.oTh[..., :, None])
     b_v = torch.cat([v_ref[..., 0:6], state.vdes], dim=-1)
@@ -313,34 +319,38 @@ def compute(ctl: Controller, state: ControllerState, device: DeviceData,
                       perfect_estimator)
     planner_target = state.planner_target
     if cfg.mpc_every_tick or k % k_mpc == 0:
-        if cfg.mpc_planner:
-            oRh, oTh = pre.oRh, pre.oTh[..., :, None]
-            l_feet = oRh.transpose(-1, -2) @ (state.foot_traj.position - oTh)
-            res = mpc_ddp_planner.solve_mpc_planner(
-                cfg, pre.xref, pre.fsteps, l_feet, state.mpc,
-                cycle=k // k_mpc)
-            planner_target = oRh @ res.o_target + oTh
-        elif cfg.type_MPC:
-            res = mpc_mod.solve_mpc(cfg, pre.xref, pre.fsteps, state.mpc,
-                                    ctl.mpc_settings)
-        elif cfg.mpc_every_tick:
-            # 500 Hz MPC (crocoddyl_eval/test_5): the first node covers
-            # the time left to the next gait boundary; the warm start is
-            # shifted only on the boundary itself
-            dt_first = torch.tensor(float(k_mpc - k % k_mpc),
-                                    dtype=state.q.dtype) * cfg.dt_wbc
-            res = mpc_ddp.solve_mpc_ddp(cfg, pre.xref, pre.fsteps, state.mpc,
-                                        dt_first=dt_first,
-                                        shift_warm=k % k_mpc == 0)
-        else:
-            res = mpc_ddp.solve_mpc_ddp(cfg, pre.xref, pre.fsteps, state.mpc)
-        x_f_next = res.x_f_applied
-        x_f_mpc = x_f_next
-        if cfg.mpc_async and k != 0:
-            # one-period-stale consumption: the previous plan, rolled; the
-            # fresh solve is applied next period
-            x_f_mpc = _stale_roll(cfg, pre.gait.current, state.x_f_next, k)
-        mpc_state = res.state
+        with span("mpc"):
+            if cfg.mpc_planner:
+                oRh, oTh = pre.oRh, pre.oTh[..., :, None]
+                l_feet = oRh.transpose(-1, -2) @ (
+                    state.foot_traj.position - oTh)
+                res = mpc_ddp_planner.solve_mpc_planner(
+                    cfg, pre.xref, pre.fsteps, l_feet, state.mpc,
+                    cycle=k // k_mpc)
+                planner_target = oRh @ res.o_target + oTh
+            elif cfg.type_MPC:
+                res = mpc_mod.solve_mpc(cfg, pre.xref, pre.fsteps,
+                                        state.mpc, ctl.mpc_settings)
+            elif cfg.mpc_every_tick:
+                # 500 Hz MPC (crocoddyl_eval/test_5): the first node
+                # covers the time left to the next gait boundary; the warm
+                # start is shifted only on the boundary itself
+                dt_first = torch.tensor(float(k_mpc - k % k_mpc),
+                                        dtype=state.q.dtype) * cfg.dt_wbc
+                res = mpc_ddp.solve_mpc_ddp(cfg, pre.xref, pre.fsteps,
+                                            state.mpc, dt_first=dt_first,
+                                            shift_warm=k % k_mpc == 0)
+            else:
+                res = mpc_ddp.solve_mpc_ddp(cfg, pre.xref, pre.fsteps,
+                                            state.mpc)
+            x_f_next = res.x_f_applied
+            x_f_mpc = x_f_next
+            if cfg.mpc_async and k != 0:
+                # one-period-stale consumption: the previous plan, rolled;
+                # the fresh solve is applied next period
+                x_f_mpc = _stale_roll(cfg, pre.gait.current, state.x_f_next,
+                                      k)
+            mpc_state = res.state
     else:
         x_f_mpc, x_f_next, mpc_state = (state.x_f_mpc, state.x_f_next,
                                         state.mpc)
@@ -348,6 +358,7 @@ def compute(ctl: Controller, state: ControllerState, device: DeviceData,
                         planner_target, return_telemetry=return_telemetry)
 
 
+@spanned("post")
 def compute_post(ctl: Controller, state: ControllerState, pre: PreMPC,
                  k: int, x_f_mpc, x_f_next, mpc_state, planner_target,
                  wbc_res=None, return_telemetry: bool = False):
@@ -361,14 +372,16 @@ def compute_post(ctl: Controller, state: ControllerState, pre: PreMPC,
 
     inp = wbc_inputs(ctl, state, pre, x_f_mpc)
     if wbc_res is None:
-        wbc_res = wbc_mod.compute_wbc(
-            cfg, ctl.model, state.wbc, inp.qj, inp.b_v, inp.f_cmd,
-            inp.contacts, inp.feet_p_cmd, inp.feet_v_cmd, inp.feet_a_cmd,
-            ctl.wbc_settings)
+        with span("wbc"):
+            wbc_res = wbc_mod.compute_wbc(
+                cfg, ctl.model, state.wbc, inp.qj, inp.b_v, inp.f_cmd,
+                inp.contacts, inp.feet_p_cmd, inp.feet_v_cmd,
+                inp.feet_a_cmd, ctl.wbc_settings)
 
     # security check (scripts/Controller.py:341-365)
-    q_sec = torch.as_tensor(np.tile(np.asarray(Config().q_security), 4),
-                            dtype=dtype, device=state.q.device)
+    with host_read("post_security"):
+        q_sec = torch.as_tensor(np.tile(np.asarray(Config().q_security), 4),
+                                dtype=dtype, device=state.q.device)
     err_pos = torch.any(torch.abs(est.q_filt[..., 7:]) > q_sec, dim=-1)
     err_vel = torch.any(torch.abs(est.v_secu) > cfg.v_security, dim=-1)
     err_tau = torch.any(torch.abs(wbc_res.tau_ff) > cfg.tau_security, dim=-1)

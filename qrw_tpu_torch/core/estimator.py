@@ -20,6 +20,7 @@ from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.kalman import KF18State, kf18_init, kf18_step
 from qrw_tpu_torch.ops import rbd
 from qrw_tpu_torch.ops.rotations import quat_to_rot, quat_to_rpy, rpy_to_quat
+from qrw_tpu_torch.utils.profiling import host_read
 
 
 def filter_alpha(dt: float, fc: float) -> float:
@@ -97,7 +98,8 @@ def run_filter(cfg: Config, model: rbd.TorchModel, state: EstimatorState,
                      (rpy_raw[..., 2] - yaw_offset)[..., None]], dim=-1)
     imu_quat = rpy_to_quat(rpy)
     oRb = quat_to_rot(imu_quat)
-    imu_r = torch.as_tensor(cfg.imu_offset, dtype=dtype, device=dev)
+    with host_read("estimator_imu_offset"):
+        imu_r = torch.as_tensor(cfg.imu_offset, dtype=dtype, device=dev)
 
     ksc = (state.k_since_contact + feet_status) * feet_status
 
@@ -116,7 +118,8 @@ def run_filter(cfg: Config, model: rbd.TorchModel, state: EstimatorState,
     w = device.base_ang_vel[..., None, :].expand_as(fk_pos)
     vel_feet = torch.linalg.cross(fk_pos, w) - fk_vel          # (..., 4, 3)
     vmes = device.v_mes.reshape(device.v_mes.shape[:-1] + (4, 3))
-    sign = torch.tensor([-1.0, -1.0, 1.0, 1.0], dtype=dtype, device=dev)
+    with host_read("estimator_sign"):
+        sign = torch.tensor([-1.0, -1.0, 1.0, 1.0], dtype=dtype, device=dev)
     vx_corr = vel_feet[..., 0] + cfg.foot_radius * (
         vmes[..., 1] + sign * vmes[..., 2])
     vel_feet = torch.cat([vx_corr[..., None], vel_feet[..., 1:]], dim=-1)
@@ -177,7 +180,8 @@ def run_filter(cfg: Config, model: rbd.TorchModel, state: EstimatorState,
         b_filt_vel = mv(oRb.transpose(-1, -2), oi_filt_vel) - cross
         ob_filt_vel = mv(oRb, b_filt_vel)
 
-        a_pos = torch.as_tensor(cfg.alpha_pos, dtype=dtype, device=dev)
+        with host_read("estimator_alpha_pos"):
+            a_pos = torch.as_tensor(cfg.alpha_pos, dtype=dtype, device=dev)
         hp_pos = a_pos * (state.hp_pos + ob_filt_vel * cfg.dt_wbc)
         lp_pos = (a_pos * state.lp_pos
                   + (1.0 - a_pos) * (fk_xyz + xyz_mean_feet))

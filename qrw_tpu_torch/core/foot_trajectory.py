@@ -14,6 +14,7 @@ import torch
 
 from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.gait import GaitState, phase_durations
+from qrw_tpu_torch.utils.profiling import host_read
 
 _B = np.zeros((6, 6))
 _B[0, 0] = 1.0
@@ -82,7 +83,8 @@ def update_foot_trajectory(cfg: Config, gait: GaitState,
         state.velocity[..., 0:2, :] * s[..., None, :],
         state.acceleration[..., 0:2, :] * s[..., None, :] ** 2,
         target[..., 0:2, :], zeros24, zeros24], dim=-3)     # (..., 6, 2, 4)
-    binv = torch.as_tensor(_BINV, dtype=dtype, device=s.device)
+    with host_read("foot_trajectory_binv"):
+        binv = torch.as_tensor(_BINV, dtype=dtype, device=s.device)
     new_coeffs = torch.einsum("ij,...jak->...kai", binv, rhs)
     coeffs = torch.where(refit[..., None, None], new_coeffs, state.coeffs)
     t_fit = torch.where(refit, t, state.t_fit)

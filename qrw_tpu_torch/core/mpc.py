@@ -29,6 +29,7 @@ import torch
 from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.ops import qp
 from qrw_tpu_torch.ops.rotations import skew
+from qrw_tpu_torch.utils.profiling import host_read, span, spanned
 
 
 @functools.lru_cache(maxsize=8)
@@ -86,8 +87,16 @@ def _assemble_common(cfg: Config, xref, fsteps):
     dtype, dev = xref.dtype, xref.device
     bs = tuple(xref.shape[:-2])
     gait = gait_from_fsteps(fsteps, N)
-    gI = torch.as_tensor(np.asarray(cfg.gI).reshape(3, 3), dtype=dtype,
-                         device=dev)
+    inf = float("inf")
+    with host_read("mpc_constants"):
+        gI = torch.as_tensor(np.asarray(cfg.gI).reshape(3, 3), dtype=dtype,
+                             device=dev)
+        com_z = torch.tensor([0.0, 0.0, cfg.offset_com_z], dtype=dtype,
+                             device=dev)
+        l_f = torch.tensor([-inf, -inf, -inf, -inf, -cfg.fz_max],
+                           dtype=dtype, device=dev)
+        gvec = torch.zeros(12, dtype=dtype, device=dev)
+        gvec[8] = -cfg.gravity * dt         # a copy of the host scalar
 
     yaw = xref[..., 5, :N]
     c, s = torch.cos(yaw), torch.sin(yaw)
@@ -97,11 +106,11 @@ def _assemble_common(cfg: Config, xref, fsteps):
                       torch.stack([s, c, z], -1),
                       torch.stack([z, z, o], -1)], -2)
     RgIR = torch.einsum("...kji,jl,...klm->...kim", Rz, gI, Rz)
-    I_inv = torch.linalg.inv(RgIR)
+    with host_read("mpc_inv_info"):
+        I_inv = torch.linalg.inv(RgIR)
 
     feet = fsteps[..., :N, :].reshape(bs + (N, 4, 3))
-    com = xref[..., 0:3, :N].transpose(-1, -2) + torch.tensor(
-        [0.0, 0.0, cfg.offset_com_z], dtype=dtype, device=dev)
+    com = xref[..., 0:3, :N].transpose(-1, -2) + com_z
     lever = feet - com[..., :, None, :]
     tor = dt * torch.einsum("...kab,...kibc->...kaic", I_inv, skew(lever))
     frc = (dt / cfg.mass) * torch.eye(3, dtype=dtype, device=dev)[
@@ -113,8 +122,6 @@ def _assemble_common(cfg: Config, xref, fsteps):
     p = kk[:, None] - kk[None, :]
     mask = (p >= 0).to(dtype)
 
-    gvec = torch.zeros(12, dtype=dtype, device=dev)
-    gvec[8] = -cfg.gravity * dt
     xj = xref[..., :, :N].transpose(-1, -2)
     Axj = torch.cat([xj[..., 0:6] + dt * xj[..., 6:12], xj[..., 6:12]],
                     dim=-1)
@@ -124,9 +131,7 @@ def _assemble_common(cfg: Config, xref, fsteps):
                                 + (p.to(dtype) * dt)[:, :, None]
                                 * rE[..., None, :, :])).sum(dim=-2)
 
-    inf = float("inf")
-    l_f = torch.tensor([-inf, -inf, -inf, -inf, -cfg.fz_max], dtype=dtype,
-                       device=dev).repeat(4 * N).expand(bs + (20 * N,))
+    l_f = l_f.repeat(4 * N).expand(bs + (20 * N,))
     u_f = torch.zeros(bs + (20 * N,), dtype=dtype, device=dev)
     contact = torch.repeat_interleave(gait.reshape(bs + (4 * N,)), 3, dim=-1)
     l_b = torch.where(contact > 0, -inf, 0.0).to(dtype)
@@ -222,10 +227,12 @@ def build_qp_compact(cfg: Config, xref, fsteps):
     dtype, dev = xref.dtype, xref.device
     bs = tuple(xref.shape[:-2])
     Bl, hblk, l, u, mask, p = _assemble_common(cfg, xref, fsteps)
-    w = torch.as_tensor(cfg.w_state, dtype=dtype, device=dev)
+    S0, S2 = _h_coeffs(N)
+    with host_read("mpc_weights"):
+        w = torch.as_tensor(cfg.w_state, dtype=dtype, device=dev)
+        S0 = torch.as_tensor(S0, dtype=dtype, device=dev)
+        S2 = torch.as_tensor(S2, dtype=dtype, device=dev)
     wtop, wbot = w[0:6], w[6:12]
-    S0, S2 = (torch.as_tensor(S, dtype=dtype, device=dev)
-              for S in _h_coeffs(N))
     M1 = torch.einsum("...jai,a,...lak->...jlik", Bl, wtop, Bl)
     M2 = torch.einsum("...jai,a,...lak->...jlik", Bl, wbot, Bl)
     Hblk = (dt * dt) * S2[:, :, None, None] * M1 \
@@ -273,13 +280,14 @@ def build_qp_reduced(cfg: Config, xref, fsteps, cap: int):
     bi = torch.arange(B, device=dev)[:, None]
     BlS = Bl.reshape(B, N, 6, 4, 3)[bi, step, :, foot, :]  # (B, cap, 6, 3)
 
-    w = torch.as_tensor(cfg.w_state, dtype=dtype, device=dev)
-    wtop, wbot = w[0:6], w[6:12]
     S0, S2 = _h_coeffs(N)
-    S0g = torch.as_tensor(S0, dtype=dtype, device=dev)[
-        step[:, :, None], step[:, None, :]]                 # (B, cap, cap)
-    S2g = torch.as_tensor(S2, dtype=dtype, device=dev)[
-        step[:, :, None], step[:, None, :]]
+    with host_read("mpc_weights"):
+        w = torch.as_tensor(cfg.w_state, dtype=dtype, device=dev)
+        S0 = torch.as_tensor(S0, dtype=dtype, device=dev)
+        S2 = torch.as_tensor(S2, dtype=dtype, device=dev)
+    wtop, wbot = w[0:6], w[6:12]
+    S0g = S0[step[:, :, None], step[:, None, :]]            # (B, cap, cap)
+    S2g = S2[step[:, :, None], step[:, None, :]]
     M1 = torch.einsum("bsai,a,btak->bstik", BlS, wtop, BlS)
     M2 = torch.einsum("bsai,a,btak->bstik", BlS, wbot, BlS)
     Hblk = (dt * dt) * S2g[..., None, None] * M1 \
@@ -345,14 +353,17 @@ def reduced_constraints(cfg: Config, cap: int, batch: int, device):
     (batch, 5cap) of the friction pyramid and the normal-force cap."""
     f32 = torch.float32
     cone = qp.ReducedConeStructure(cap, cfg.mu)
-    A = torch.as_tensor(cone.matrix(), dtype=f32, device=device)
-    l = torch.tensor([-np.inf, -np.inf, -np.inf, -np.inf, -cfg.fz_max],
-                     dtype=f32, device=device).repeat(cap) \
-        .expand(batch, 5 * cap).contiguous()
+    A = cone.matrix()
+    with host_read("mpc_cone"):
+        A = torch.as_tensor(A, dtype=f32, device=device)
+        l = torch.tensor([-np.inf, -np.inf, -np.inf, -np.inf, -cfg.fz_max],
+                         dtype=f32, device=device)
+    l = l.repeat(cap).expand(batch, 5 * cap).contiguous()
     u = torch.zeros((batch, 5 * cap), dtype=f32, device=device)
     return cone, A, l, u
 
 
+@spanned("reduced")
 def solve_mpc_batch_reduced(cfg: Config, xrefs, fsteps,
                             state: Optional[MPCWarmState] = None,
                             settings: Optional[qp.QPSettings] = None,
@@ -381,41 +392,43 @@ def solve_mpc_batch_reduced(cfg: Config, xrefs, fsteps,
             eps_abs=1e-4, eps_rel=1e-4, max_iter=cfg.mpc_max_iter,
             adaptive_rho_interval=cfg.osqp_adaptive_rho_interval,
             adaptive_rho_tolerance=cfg.osqp_adaptive_rho_tolerance)
-    xrefs = xrefs.to(dtype)
-    fsteps = fsteps.to(dtype)
-    H_r, q_r, Bl, h, idx, valid = build_qp_reduced(cfg, xrefs, fsteps, cap)
-    B = H_r.shape[0]
-    vidx = (3 * idx[:, :, None]
-            + torch.arange(3, device=dev)).reshape(B, 3 * cap)
-    ridx = (5 * idx[:, :, None]
-            + torch.arange(5, device=dev)).reshape(B, 5 * cap)
-    vm3 = torch.repeat_interleave(valid.to(dtype), 3, dim=1)
-    rm5 = torch.repeat_interleave(valid.to(dtype), 5, dim=1)
-    ok = gait_from_fsteps(fsteps, N).reshape(B, -1).sum(dim=1) <= cap
+    with span("reduced.build"):
+        xrefs = xrefs.to(dtype)
+        fsteps = fsteps.to(dtype)
+        H_r, q_r, Bl, h, idx, valid = build_qp_reduced(cfg, xrefs, fsteps, cap)
+        B = H_r.shape[0]
+        vidx = (3 * idx[:, :, None]
+                + torch.arange(3, device=dev)).reshape(B, 3 * cap)
+        ridx = (5 * idx[:, :, None]
+                + torch.arange(5, device=dev)).reshape(B, 5 * cap)
+        vm3 = torch.repeat_interleave(valid.to(dtype), 3, dim=1)
+        rm5 = torch.repeat_interleave(valid.to(dtype), 5, dim=1)
+        ok = gait_from_fsteps(fsteps, N).reshape(B, -1).sum(dim=1) <= cap
 
-    cone, A_r, l_r, u_r = reduced_constraints(cfg, cap, B, dev)
+        cone, A_r, l_r, u_r = reduced_constraints(cfg, cap, B, dev)
 
-    kw = {}
-    if state is not None:
-        if shift:
-            state = shift_warm_state_reduced(state, N)
-        kw = dict(x0=torch.gather(state.f, 1, vidx) * vm3,
-                  y0=torch.gather(state.y, 1, ridx) * rm5,
-                  rho_init=state.rho)
-        if schedule is None:
-            schedule = [50]
+        kw = {}
+        if state is not None:
+            if shift:
+                state = shift_warm_state_reduced(state, N)
+            kw = dict(x0=torch.gather(state.f, 1, vidx) * vm3,
+                      y0=torch.gather(state.y, 1, ridx) * rm5,
+                      rho_init=state.rho)
+            if schedule is None:
+                schedule = [50]
     sol = qp_pallas.solve(H_r, q_r, A_r, l_r, u_r, settings, tile=tile,
                           schedule=schedule, cone=cone,
                           early_exit=early_exit, **kw)
 
-    zeros = lambda k: torch.zeros((B, k * N), dtype=dtype, device=dev)
-    f_full = zeros(12).scatter(1, vidx, sol.x * vm3)
-    y_full = zeros(20).scatter(1, ridx, sol.y * rm5)
-    dx = recover_dx(cfg, Bl, f_full, h)
-    states = dx.reshape(B, N, 12).transpose(1, 2) + xrefs[:, :, 1:N + 1]
-    forces = f_full.reshape(B, N, 12).transpose(1, 2)
-    x_f = torch.cat([states, forces], dim=1)               # (B, 24, N)
-    return x_f, MPCWarmState(f=f_full, y=y_full, rho=sol.rho), sol, ok
+    with span("reduced.plan"):
+        zeros = lambda k: torch.zeros((B, k * N), dtype=dtype, device=dev)
+        f_full = zeros(12).scatter(1, vidx, sol.x * vm3)
+        y_full = zeros(20).scatter(1, ridx, sol.y * rm5)
+        dx = recover_dx(cfg, Bl, f_full, h)
+        states = dx.reshape(B, N, 12).transpose(1, 2) + xrefs[:, :, 1:N + 1]
+        forces = f_full.reshape(B, N, 12).transpose(1, 2)
+        x_f = torch.cat([states, forces], dim=1)               # (B, 24, N)
+        return x_f, MPCWarmState(f=f_full, y=y_full, rho=sol.rho), sol, ok
 
 
 class MPCBatchState(NamedTuple):
@@ -446,6 +459,7 @@ def shift_warm_state(state: MPCBatchState, n_steps: int) -> MPCBatchState:
         kinv=torch.roll(state.kinv, (-12, -12), dims=(1, 2)))
 
 
+@spanned("fullsize")
 def solve_mpc_batch_pallas(cfg: Config, xrefs, fsteps,
                            state: Optional[MPCBatchState] = None,
                            settings: Optional[qp.QPSettings] = None,
@@ -476,30 +490,34 @@ def solve_mpc_batch_pallas(cfg: Config, xrefs, fsteps,
             eps_abs=1e-4, eps_rel=1e-4, max_iter=cfg.mpc_max_iter,
             adaptive_rho_interval=cfg.osqp_adaptive_rho_interval,
             adaptive_rho_tolerance=cfg.osqp_adaptive_rho_tolerance)
-    H, qlin, l, u, Bl, h = build_qp_compact(cfg, xrefs.to(dtype),
-                                            fsteps.to(dtype))
-    A = torch.as_tensor(cone_matrix(N, cfg.mu), dtype=dtype, device=dev)
-    cone = qp.ConeStructure(N, cfg.mu)
-    kw = {}
-    if state is not None:
-        if shift:
-            state = shift_warm_state(state, N)
-        if refactor is None:
-            refactor = "chol" if shift else "stale"
-        kw = dict(x0=state.f, y0=state.y, rho_init=state.rho,
-                  precond=(state.D, state.E, state.c),
-                  kinv_init=state.kinv, kinv_rho=state.kinv_rho,
-                  refactor=refactor)
-        if schedule is None:
-            schedule = [100]
+    with span("fullsize.build"):
+        H, qlin, l, u, Bl, h = build_qp_compact(cfg, xrefs.to(dtype),
+                                                fsteps.to(dtype))
+        A = cone_matrix(N, cfg.mu)
+        with host_read("mpc_cone"):
+            A = torch.as_tensor(A, dtype=dtype, device=dev)
+        cone = qp.ConeStructure(N, cfg.mu)
+        kw = {}
+        if state is not None:
+            if shift:
+                state = shift_warm_state(state, N)
+            if refactor is None:
+                refactor = "chol" if shift else "stale"
+            kw = dict(x0=state.f, y0=state.y, rho_init=state.rho,
+                      precond=(state.D, state.E, state.c),
+                      kinv_init=state.kinv, kinv_rho=state.kinv_rho,
+                      refactor=refactor)
+            if schedule is None:
+                schedule = [100]
     sol = qp_pallas.solve(H, qlin, A, l, u, settings, tile=tile,
                           schedule=schedule, cone=cone, **kw)
-    B = H.shape[0]
-    dx = recover_dx(cfg, Bl, sol.x, h)
-    states = dx.reshape(B, N, 12).transpose(1, 2) + xrefs[:, :, 1:N + 1]
-    forces = sol.x.reshape(B, N, 12).transpose(1, 2)
-    x_f = torch.cat([states, forces], dim=1)                 # (B, 24, N)
-    D, E, c = sol.precond
-    new_state = MPCBatchState(f=sol.x, y=sol.y, rho=sol.rho, D=D, E=E, c=c,
-                              kinv=sol.kinv, kinv_rho=sol.kinv_rho)
-    return x_f, new_state, sol
+    with span("fullsize.plan"):
+        B = H.shape[0]
+        dx = recover_dx(cfg, Bl, sol.x, h)
+        states = dx.reshape(B, N, 12).transpose(1, 2) + xrefs[:, :, 1:N + 1]
+        forces = sol.x.reshape(B, N, 12).transpose(1, 2)
+        x_f = torch.cat([states, forces], dim=1)                 # (B, 24, N)
+        D, E, c = sol.precond
+        new_state = MPCBatchState(f=sol.x, y=sol.y, rho=sol.rho, D=D, E=E, c=c,
+                                  kinv=sol.kinv, kinv_rho=sol.kinv_rho)
+        return x_f, new_state, sol

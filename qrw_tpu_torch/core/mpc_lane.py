@@ -20,6 +20,8 @@ import torch
 
 from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.ops import qp, qp_phase
+from qrw_tpu_torch.utils.profiling import (active, count, host_read, span,
+                                          spanned)
 
 f32 = torch.float32
 
@@ -33,6 +35,22 @@ def assemble_lane(cfg: Config, xrefs, fsteps):
     dt = cfg.dt_mpc
     dtype, dev = xrefs.dtype, xrefs.device
     B = xrefs.shape[-1]
+    # the constants, copied to the device on every call
+    frc = (dt / cfg.mass) * np.tile(np.eye(3, dtype=np.float32)[:, None, :],
+                                    (1, 4, 1)).reshape(3, 12)
+    L, P2 = qp_phase.time_coupling(N)
+    with host_read("mpc_assembly_constants"):
+        # (Rz' gI Rz)^-1 = Rz' gI^-1 Rz (Rz orthogonal)
+        gI_inv = torch.as_tensor(
+            np.linalg.inv(np.asarray(cfg.gI, np.float64).reshape(3, 3))
+            .astype(np.float32), dtype=dtype, device=dev)
+        com_z = torch.tensor([0.0, 0.0, cfg.offset_com_z], dtype=dtype,
+                             device=dev)
+        frc = torch.as_tensor(frc, dtype=dtype, device=dev)
+        L = torch.as_tensor(L, dtype=dtype, device=dev)
+        P2 = torch.as_tensor(P2, dtype=dtype, device=dev)
+        gvec = torch.zeros(12, dtype=dtype, device=dev)
+        gvec[8] = -cfg.gravity * dt         # a copy of the host scalar
     gait = (fsteps[:N, 0::3, :] != 0.0).to(dtype)
 
     yaw = xrefs[5, :N, :]
@@ -42,15 +60,10 @@ def assemble_lane(cfg: Config, xrefs, fsteps):
     Rz = torch.stack([torch.stack([c, -s, z], 1),
                       torch.stack([s, c, z], 1),
                       torch.stack([z, z, o], 1)], 1)        # (N, 3, 3, B)
-    # (Rz' gI Rz)^-1 = Rz' gI^-1 Rz (Rz orthogonal)
-    gI_inv = torch.as_tensor(
-        np.linalg.inv(np.asarray(cfg.gI, np.float64).reshape(3, 3))
-        .astype(np.float32), dtype=dtype, device=dev)
     I_inv = torch.einsum("nijb,ik,nklb->njlb", Rz, gI_inv, Rz)
 
     feet = fsteps[:N].reshape(N, 4, 3, B)
-    com = xrefs[0:3, :N, :].permute(1, 0, 2) + torch.tensor(
-        [0.0, 0.0, cfg.offset_com_z], dtype=dtype, device=dev)[None, :, None]
+    com = xrefs[0:3, :N, :].permute(1, 0, 2) + com_z[None, :, None]
     lever = feet - com[:, None, :, :]
     lx, ly, lz = lever[:, :, 0], lever[:, :, 1], lever[:, :, 2]
     zz = torch.zeros_like(lx)
@@ -59,22 +72,14 @@ def assemble_lane(cfg: Config, xrefs, fsteps):
                       torch.stack([-ly, lx, zz], 2)], 2)    # (N, 4, 3, 3, B)
     tor = dt * torch.einsum("naib,nfijb->nafjb", I_inv, sk)
     tor = tor.reshape(N, 3, 12, B)
-    frc = (dt / cfg.mass) * np.tile(np.eye(3, dtype=np.float32)[:, None, :],
-                                    (1, 4, 1)).reshape(3, 12)
-    frc = torch.as_tensor(frc, dtype=dtype, device=dev)[None, :, :, None] \
-        .expand(N, 3, 12, B)
+    frc = frc[None, :, :, None].expand(N, 3, 12, B)
     Bl = torch.cat([frc, tor], dim=1)                       # (N, 6, 12, B)
 
     # free response hblk[k] = sum_{j<=k} A^(k-j) r_j
-    gvec = torch.zeros(12, dtype=dtype, device=dev)
-    gvec[8] = -cfg.gravity * dt
     xj = xrefs[:, :N, :]
     Axj = torch.cat([xj[0:6] + dt * xj[6:12], xj[6:12]], dim=0)
     r = (Axj + gvec[:, None, None]
          - xrefs[:, 1:N + 1, :]).permute(1, 0, 2)           # (N, 12, B)
-    L, P2 = qp_phase.time_coupling(N)
-    L = torch.as_tensor(L, dtype=dtype, device=dev)
-    P2 = torch.as_tensor(P2, dtype=dtype, device=dev)
     rE = r[:, 6:12, :]
     top = torch.einsum("kj,jab->kab", L, r[:, 0:6, :]) \
         + dt * torch.einsum("kj,jab->kab", P2, rE)
@@ -371,6 +376,7 @@ def default_rescue_settings() -> qp.QPSettings:
                          adaptive_rho_interval=200, scaling_iters=4)
 
 
+@spanned("mpc.rescue")
 def _rescue_failed_lanes(cfg: Config, xrefs, fsteps, f_full, y_full, sol,
                          rescue_cap: int, rescue_settings=None,
                          c_scale: float = 1.0, qp_cap: int = None,
@@ -396,57 +402,66 @@ def _rescue_failed_lanes(cfg: Config, xrefs, fsteps, f_full, y_full, sol,
     R = min(rescue_cap, B)
     if rescue_settings is None:
         rescue_settings = default_rescue_settings()
-    bad = ~sol.converged
-    rrho = (warm_state.rrho if warm_state is not None
-            and warm_state.rrho is not None
-            else torch.full((B,), rescue_settings.rho, dtype=f32,
-                            device=dev))
-    if not bool(bad.any()):
-        return f_full, y_full, sol._replace(
-            rescued=torch.zeros((), dtype=torch.int64, device=dev)), rrho
+    with span("rescue.select"):
+        bad = ~sol.converged
+        rrho = (warm_state.rrho if warm_state is not None
+                and warm_state.rrho is not None
+                else torch.full((B,), rescue_settings.rho, dtype=f32,
+                                device=dev))
+        with host_read("rescue_any"):
+            fire = bool(bad.any())
+        if not fire:
+            count("mpc.rescued", 0)
+            return f_full, y_full, sol._replace(
+                rescued=torch.zeros((), dtype=torch.int64, device=dev)), rrho
 
-    if warm_state is not None:
-        has_carry = torch.any(warm_state.f.abs() > 0.0, dim=1).any(dim=0)
-        rank = torch.where(bad & has_carry, 0, torch.where(bad, 1, 2))
-    else:
-        rank = torch.where(bad, 0, 1)
-    order = torch.argsort(rank, stable=True)[:R]
-    sel_bad = bad[order]                                   # (R,)
-    xb = xrefs.to(f32)[:, :, order].permute(2, 0, 1)       # (R, 12, N+1)
-    fb = fsteps.to(f32)[:, :, order].permute(2, 0, 1)
-    wkw = {}
-    if warm_state is not None:
-        # stale rolled plan -> reduced-path warm start; the duals back to
-        # physical units (y_phase = c_scale * y_physical)
-        f_w = warm_state.f[:, :, order].permute(2, 0, 1).reshape(R, 12 * N)
-        y_w = warm_state.y[:, :, order].permute(2, 0, 1) \
-            .reshape(R, 20 * N) / c_scale
-        mi = rescue_settings.max_iter
-        sched = [min(50, mi)]
-        while sum(sched) < mi:
-            sched.append(min(max(100, mi // 3), mi - sum(sched)))
-        wkw = dict(state=mpc_mod.MPCWarmState(f=f_w, y=y_w,
-                                              rho=rrho[order, None]),
-                   schedule=sched, early_exit=True)
+        if warm_state is not None:
+            has_carry = torch.any(warm_state.f.abs() > 0.0, dim=1).any(dim=0)
+            rank = torch.where(bad & has_carry, 0, torch.where(bad, 1, 2))
+        else:
+            rank = torch.where(bad, 0, 1)
+        order = torch.argsort(rank, stable=True)[:R]
+        sel_bad = bad[order]                                   # (R,)
+        xb = xrefs.to(f32)[:, :, order].permute(2, 0, 1)   # (R, 12, N+1)
+        fb = fsteps.to(f32)[:, :, order].permute(2, 0, 1)
+        wkw = {}
+        if warm_state is not None:
+            # stale rolled plan -> reduced-path warm start; the duals back
+            # to physical units (y_phase = c_scale * y_physical)
+            f_w = warm_state.f[:, :, order].permute(2, 0, 1) \
+                .reshape(R, 12 * N)
+            y_w = warm_state.y[:, :, order].permute(2, 0, 1) \
+                .reshape(R, 20 * N) / c_scale
+            mi = rescue_settings.max_iter
+            sched = [min(50, mi)]
+            while sum(sched) < mi:
+                sched.append(min(max(100, mi // 3), mi - sum(sched)))
+            wkw = dict(state=mpc_mod.MPCWarmState(f=f_w, y=y_w,
+                                                  rho=rrho[order, None]),
+                       schedule=sched, early_exit=True)
     _, st_r, sol_r, ok_r = mpc_mod.solve_mpc_batch_reduced(
         cfg, xb, fb, settings=rescue_settings, tile=min(R, 64),
         cap=(2 * N if qp_cap is None else qp_cap), **wkw)
-    good = (sel_bad & sol_r.converged & ok_r)[None, None, :]
-    f_r = st_r.f.reshape(R, 4 * N, 3).permute(1, 2, 0)
-    # back to the phase solver's c-scaled duals
-    y_r = c_scale * st_r.y.reshape(R, 4 * N, 5).permute(1, 2, 0)
-    f_full = f_full.clone()
-    y_full = y_full.clone()
-    f_full[:, :, order] = torch.where(good, f_r, f_full[:, :, order])
-    y_full[:, :, order] = torch.where(good, y_r, y_full[:, :, order])
-    conv = sol.converged.clone()
-    conv[order] = conv[order] | good[0, 0]
-    rrho = rrho.clone()
-    rrho[order] = torch.where(sel_bad, sol_r.rho[:, 0], rrho[order])
-    return f_full, y_full, sol._replace(converged=conv,
-                                        rescued=sel_bad.sum()), rrho
+    with span("rescue.patch"):
+        good = (sel_bad & sol_r.converged & ok_r)[None, None, :]
+        f_r = st_r.f.reshape(R, 4 * N, 3).permute(1, 2, 0)
+        # back to the phase solver's c-scaled duals
+        y_r = c_scale * st_r.y.reshape(R, 4 * N, 5).permute(1, 2, 0)
+        f_full = f_full.clone()
+        y_full = y_full.clone()
+        f_full[:, :, order] = torch.where(good, f_r, f_full[:, :, order])
+        y_full[:, :, order] = torch.where(good, y_r, y_full[:, :, order])
+        conv = sol.converged.clone()
+        conv[order] = conv[order] | good[0, 0]
+        rrho = rrho.clone()
+        rrho[order] = torch.where(sel_bad, sol_r.rho[:, 0], rrho[order])
+        rescued = sel_bad.sum()
+        count("mpc.rescued", rescued)
+        return f_full, y_full, sol._replace(converged=conv,
+                                            rescued=rescued), rrho
 
 
+@spanned("mpc.phase")
 def solve_mpc_batch_phase(cfg: Config, xrefs, fsteps, ps: PhaseStructure,
                           phases_of, state: Optional[MPCLaneState] = None,
                           n_iters: int = None, shift: bool = False,
@@ -476,17 +491,21 @@ def solve_mpc_batch_phase(cfg: Config, xrefs, fsteps, ps: PhaseStructure,
     if n_iters is None:
         n_iters = 300 if state is None else 250
 
-    Bl, hblk, gait, BlS, q_r, oh2_t = phase_problem(cfg, xrefs, fsteps, ps,
-                                                    phases_of, tile)
+    with span("mpc.assemble"):
+        Bl, hblk, gait, BlS, q_r, oh2_t = phase_problem(
+            cfg, xrefs, fsteps, ps, phases_of, tile)
 
     x0 = y0 = None
     if state is not None:
-        if shift:
-            state = shift_lane_state(state, N)
-        f_t = state.f.reshape(4 * N, 3, n_tiles, tile)
-        y_t = state.y.reshape(4 * N, 5, n_tiles, tile)
-        x0 = torch.einsum("tsk,kitb->sitb", oh2_t, f_t).reshape(3 * cap, B)
-        y0 = torch.einsum("tsk,kitb->sitb", oh2_t, y_t).reshape(5 * cap, B)
+        with span("mpc.warm"):
+            if shift:
+                state = shift_lane_state(state, N)
+            f_t = state.f.reshape(4 * N, 3, n_tiles, tile)
+            y_t = state.y.reshape(4 * N, 5, n_tiles, tile)
+            x0 = torch.einsum("tsk,kitb->sitb", oh2_t, f_t) \
+                .reshape(3 * cap, B)
+            y0 = torch.einsum("tsk,kitb->sitb", oh2_t, y_t) \
+                .reshape(5 * cap, B)
 
     sol = qp_phase.solve(q_r.contiguous(), BlS.contiguous(), d, phases_of,
                          x0=None if x0 is None else x0.contiguous(),
@@ -494,45 +513,55 @@ def solve_mpc_batch_phase(cfg: Config, xrefs, fsteps, ps: PhaseStructure,
                          n_iters=n_iters, eps_abs=eps_abs, eps_rel=eps_rel,
                          tile=tile, stop_at_eps=stop_at_eps)
 
-    # Support guard: a problem whose stance pattern does not match its
-    # claimed phase class solved the wrong reduced QP.
-    sup_claim = _gather_by_phase(ps.supports, phases_of)
-    sup_claim = torch.repeat_interleave(sup_claim, tile, dim=0)   # (B, 4N)
-    sup_have = gait.permute(2, 0, 1).reshape(B, 4 * N) != 0
-    support_ok = torch.all(sup_have == sup_claim, dim=1)
-    sol = sol._replace(converged=sol.converged & support_ok)
+    with span("mpc.guard"):
+        if active():
+            count("mpc.k1_tiles", n_tiles)
+            count("mpc.k1_tile_iters",
+                  sol.iters.reshape(n_tiles, tile).amax(dim=1).sum())
+        # Support guard: a problem whose stance pattern does not match its
+        # claimed phase class solved the wrong reduced QP.
+        sup_claim = _gather_by_phase(ps.supports, phases_of)
+        sup_claim = torch.repeat_interleave(sup_claim, tile, dim=0)
+        sup_have = gait.permute(2, 0, 1).reshape(B, 4 * N) != 0
+        support_ok = torch.all(sup_have == sup_claim, dim=1)     # (B,)
+        sol = sol._replace(converged=sol.converged & support_ok)
 
-    x_t = sol.x.reshape(cap, 3, n_tiles, tile)
-    yy_t = sol.y.reshape(cap, 5, n_tiles, tile)
-    f_full = torch.einsum("tsk,sitb->kitb", oh2_t, x_t).reshape(4 * N, 3, B)
-    y_full = torch.einsum("tsk,sitb->kitb", oh2_t, yy_t).reshape(4 * N, 5, B)
+        x_t = sol.x.reshape(cap, 3, n_tiles, tile)
+        yy_t = sol.y.reshape(cap, 5, n_tiles, tile)
+        f_full = torch.einsum("tsk,sitb->kitb", oh2_t, x_t) \
+            .reshape(4 * N, 3, B)
+        y_full = torch.einsum("tsk,sitb->kitb", oh2_t, yy_t) \
+            .reshape(4 * N, 5, B)
 
-    rrho_out = (state.rrho if state is not None and state.rrho is not None
-                else torch.full((B,), 0.1, dtype=f32, device=xrefs.device))
+        rrho_out = (state.rrho if state is not None
+                    and state.rrho is not None
+                    else torch.full((B,), 0.1, dtype=f32,
+                                    device=xrefs.device))
     if rescue_cap:
         f_full, y_full, sol, rrho_out = _rescue_failed_lanes(
             cfg, xrefs, fsteps, f_full, y_full, sol, rescue_cap,
             rescue_settings, c_scale=d.c_scale, qp_cap=cap,
             warm_state=state)
 
-    # A failed lane ships its stale (rolled) plan and restarts cold.
-    cv = sol.converged[None, None, :]
-    if state is not None:
-        f_full = torch.where(cv, f_full, state.f)
-        y_full = torch.where(cv, y_full, state.y)
-        f_carry = torch.where(cv, f_full, torch.zeros_like(f_full))
-        y_carry = torch.where(cv, y_full, torch.zeros_like(y_full))
-    else:
-        f_carry, y_carry = f_full, y_full
+    with span("mpc.plan"):
+        # A failed lane ships its stale (rolled) plan and restarts cold.
+        cv = sol.converged[None, None, :]
+        if state is not None:
+            f_full = torch.where(cv, f_full, state.f)
+            y_full = torch.where(cv, y_full, state.y)
+            f_carry = torch.where(cv, f_full, torch.zeros_like(f_full))
+            y_carry = torch.where(cv, y_full, torch.zeros_like(y_full))
+        else:
+            f_carry, y_carry = f_full, y_full
 
-    u = torch.einsum("kafib,kfib->kab", Bl.reshape(N, 6, 4, 3, B),
-                     f_full.reshape(N, 4, 3, B))
-    dxv = torch.einsum("kj,jab->kab", d.L, u)
-    dxp = d.dt * torch.einsum("kj,jab->kab", d.P2, u)
-    dx = torch.cat([dxp, dxv], dim=1) + hblk
-    states = dx.permute(1, 0, 2) + xrefs[:, 1:N + 1, :].to(f32)
-    forces = f_full.reshape(N, 12, B).permute(1, 0, 2)
-    x_f = torch.cat([states, forces], dim=0)            # (24, N, B)
+        u = torch.einsum("kafib,kfib->kab", Bl.reshape(N, 6, 4, 3, B),
+                         f_full.reshape(N, 4, 3, B))
+        dxv = torch.einsum("kj,jab->kab", d.L, u)
+        dxp = d.dt * torch.einsum("kj,jab->kab", d.P2, u)
+        dx = torch.cat([dxp, dxv], dim=1) + hblk
+        states = dx.permute(1, 0, 2) + xrefs[:, 1:N + 1, :].to(f32)
+        forces = f_full.reshape(N, 12, B).permute(1, 0, 2)
+        x_f = torch.cat([states, forces], dim=0)            # (24, N, B)
 
-    new_state = MPCLaneState(f=f_carry, y=y_carry, rrho=rrho_out)
-    return x_f, new_state, sol
+        new_state = MPCLaneState(f=f_carry, y=y_carry, rrho=rrho_out)
+        return x_f, new_state, sol

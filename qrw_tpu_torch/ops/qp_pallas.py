@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from qrw_tpu_torch.ops import qp
+from qrw_tpu_torch.utils.profiling import host_read, span, spanned
 
 # Launches of the CUDA kernels on CUDA tensors: K2 (one per ADMM round)
 # by variant, the dense variant's (cone=None) in all and the cone
@@ -93,10 +94,12 @@ def _build_K(P, A, rho_vec, sig_vec, cone=None):
         nb = 4 * cone.n_steps
         rc = rho_vec[:, :mc].reshape(B, nb, 5)
         diag = sig_vec + rho_vec[:, mc:]
-    C5 = torch.as_tensor(cone.cone_rows(), dtype=P.dtype, device=P.device)
-    blocks = torch.einsum("ca,bkc,cd->bkad", C5, rc, C5)       # (B,nb,3,3)
     rows, cols = _block_index(nb)
-    rows, cols = rows.to(P.device), cols.to(P.device)
+    with host_read("qp_cone_blocks"):
+        C5 = torch.as_tensor(cone.cone_rows(), dtype=P.dtype,
+                             device=P.device)
+        rows, cols = rows.to(P.device), cols.to(P.device)
+    blocks = torch.einsum("ca,bkc,cd->bkad", C5, rc, C5)       # (B,nb,3,3)
     K[:, rows, cols] += blocks.reshape(B, -1)
     K[:, ii, ii] += diag
     return K
@@ -105,7 +108,8 @@ def _build_K(P, A, rho_vec, sig_vec, cone=None):
 def _chol_inv(K):
     """K^-1 of a batch of SPD matrices: Cholesky, then a solve against
     the identity."""
-    C = torch.linalg.cholesky(K)
+    with host_read("qp_chol_info"):
+        C = torch.linalg.cholesky(K)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     return torch.cholesky_solve(eye.expand(K.shape), C)
 
@@ -124,6 +128,7 @@ def _ns_refine_plain(K, X0, ns_iters: int):
     return X, torch.amax(torch.abs(KX - eye), dim=(1, 2))
 
 
+@spanned("qp.k3")
 def _ns_refine(K, X0, ns_iters: int):
     """(X_refined, resid): kernel K3 for CUDA tensors, its plain version
     for CPU tensors, ValueError elsewhere. X comes re-centred as
@@ -251,13 +256,17 @@ def cone_matrix_of(desc: ConeDesc) -> np.ndarray:
     return F
 
 
+@spanned("qp.cone_check")
 def check_cone(A, cone) -> ConeDesc:
     """Raise ValueError unless A (m, n) is exactly the cone matrix of
     `cone` in A's dtype; return the kernel's description of it."""
     desc = cone_description(cone)
-    want = torch.as_tensor(cone_matrix_of(desc), dtype=A.dtype,
-                           device=A.device)
-    if tuple(A.shape) != tuple(want.shape) or not torch.equal(A, want):
+    want = cone_matrix_of(desc)
+    with host_read("qp_cone_check"):
+        want = torch.as_tensor(want, dtype=A.dtype, device=A.device)
+        same = (tuple(A.shape) == tuple(want.shape)
+                and torch.equal(A, want))
+    if not same:
         raise ValueError(f"A {tuple(A.shape)} is not the cone matrix of "
                          f"{cone}")
     return desc
@@ -464,6 +473,7 @@ def _ns_launch(K, X0, ns_iters: int, variant: str = None):
     return X, resid
 
 
+@spanned("qp.k2")
 def _run_kernel(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw,
                 alpha: float, n_iters: int, tile: int = 16, K=None,
                 cone=None):
@@ -508,6 +518,7 @@ def precondition(P, q, A, l, u, s: qp.QPSettings, precond=None):
     return (D, E, c), sig_vec, rho_to_vec
 
 
+@spanned("qp.solve")
 def solve(P, q, A, l, u, settings: qp.QPSettings = qp.QPSettings(),
           x0=None, y0=None, tile: int = 16, schedule=None,
           cone=None, precond=None, rho_init=None, kinv_init=None,
@@ -555,60 +566,69 @@ def solve(P, q, A, l, u, settings: qp.QPSettings = qp.QPSettings(),
     if cone is not None:
         check_cone(A, cone)     # the kernel applies this structure, not A
     s = settings
-    if schedule is None:
-        # a short first round before the first rho adaptation, then
-        # adaptive_rho_interval per round up to max_iter
-        interval = min(s.adaptive_rho_interval, s.max_iter)
-        schedule = [min(50, interval)]
-        while sum(schedule) < s.max_iter:
-            schedule.append(min(interval, s.max_iter - sum(schedule)))
+    with span("qp.precondition"):
+        if schedule is None:
+            # a short first round before the first rho adaptation, then
+            # adaptive_rho_interval per round up to max_iter
+            interval = min(s.adaptive_rho_interval, s.max_iter)
+            schedule = [min(50, interval)]
+            while sum(schedule) < s.max_iter:
+                schedule.append(min(interval, s.max_iter - sum(schedule)))
 
-    (D, E, c), sig_vec, rho_to_vec = precondition(P, q, A, l, u, s,
-                                                   precond)
-    finite0 = lambda v: torch.where(torch.isfinite(v), v,
-                                    torch.zeros_like(v)).to(f32)
-    x = torch.zeros_like(q) if x0 is None else finite0(x0.to(dev))
-    y = torch.zeros_like(l) if y0 is None else finite0(y0.to(dev))
-    rho = (torch.full((B, 1), s.rho, dtype=f32, device=dev)
-           if rho_init is None else rho_init.to(dev, f32))
-    nrm_q = torch.amax(torch.abs(q), dim=1)
-    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    conv = torch.zeros((B,), dtype=torch.bool, device=dev)
+        (D, E, c), sig_vec, rho_to_vec = precondition(P, q, A, l, u, s,
+                                                       precond)
+        finite0 = lambda v: torch.where(torch.isfinite(v), v,
+                                        torch.zeros_like(v)).to(f32)
+        x = torch.zeros_like(q) if x0 is None else finite0(x0.to(dev))
+        y = torch.zeros_like(l) if y0 is None else finite0(y0.to(dev))
+        rho = (torch.full((B, 1), s.rho, dtype=f32, device=dev)
+               if rho_init is None else rho_init.to(dev, f32))
+        nrm_q = torch.amax(torch.abs(q), dim=1)
+        iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+        conv = torch.zeros((B,), dtype=torch.bool, device=dev)
 
     z = pri = dua = Kinv = kinv_at = None
     for r, n_iters in enumerate(schedule):
-        if early_exit and r > 0 and bool(conv.all()):
-            break       # converged flags are sticky: every later round skips
-        rho_vec = rho_to_vec(rho)
-        K = _build_K(P, A, rho_vec, sig_vec, cone)
-        seeded = r == 0 and kinv_init is not None and refactor != "chol"
-        stale = seeded and refactor == "stale"
-        if seeded:
-            scale = None if kinv_rho is None else kinv_rho.to(dev, f32) / rho
-            Kinv = _factor(K, kinv_init.to(dev, f32),
-                           ns_iters=0 if stale else 3, seed_scale=scale)
-        else:
-            Kinv = _chol_inv(K)
+        if early_exit and r > 0:
+            with host_read("qp_early_exit"):
+                done = bool(conv.all())
+            if done:
+                break   # converged flags are sticky: every later round skips
+        with span("qp.factor"):
+            rho_vec = rho_to_vec(rho)
+            K = _build_K(P, A, rho_vec, sig_vec, cone)
+            seeded = r == 0 and kinv_init is not None and refactor != "chol"
+            stale = seeded and refactor == "stale"
+            if seeded:
+                scale = (None if kinv_rho is None
+                         else kinv_rho.to(dev, f32) / rho)
+                Kinv = _factor(K, kinv_init.to(dev, f32),
+                               ns_iters=0 if stale else 3, seed_scale=scale)
+            else:
+                Kinv = _chol_inv(K)
         x, y, z, pri, dua, n1, n2 = _run_kernel(
             Kinv, P, A, q, l, u, rho_vec, sig_vec, x, y, s.alpha, n_iters,
             tile=tile, K=K if stale else None, cone=cone)
-        eps_p = s.eps_abs + s.eps_rel * n1
-        eps_d = s.eps_abs + s.eps_rel * torch.maximum(n2, nrm_q)
-        iters = iters + torch.where(conv, 0, int(n_iters)).to(torch.int32)
-        conv = conv | ((pri <= eps_p) & (dua <= eps_d))
-        kinv_at = rho
-        if r + 1 < len(schedule):
-            # osqp compute_rho_estimate from the kernel's norms; not
-            # applied after the final round
-            denom_p = torch.clamp(n1, min=1e-30)
-            denom_d = torch.clamp(torch.maximum(n2, nrm_q), min=1e-30)
-            ratio = (pri / denom_p) / torch.clamp(dua / denom_d, min=1e-30)
-            scale = torch.sqrt(ratio)[:, None]
-            want = ((scale > s.adaptive_rho_tolerance)
-                    | (scale < 1.0 / s.adaptive_rho_tolerance))
-            want = want & ~conv[:, None]
-            rho = torch.where(want, torch.clamp(rho * scale, qp.RHO_MIN,
-                                                qp.RHO_MAX), rho)
+        with span("qp.rho"):
+            eps_p = s.eps_abs + s.eps_rel * n1
+            eps_d = s.eps_abs + s.eps_rel * torch.maximum(n2, nrm_q)
+            iters = iters + torch.where(conv, 0, int(n_iters)).to(
+                torch.int32)
+            conv = conv | ((pri <= eps_p) & (dua <= eps_d))
+            kinv_at = rho
+            if r + 1 < len(schedule):
+                # osqp compute_rho_estimate from the kernel's norms; not
+                # applied after the final round
+                denom_p = torch.clamp(n1, min=1e-30)
+                denom_d = torch.clamp(torch.maximum(n2, nrm_q), min=1e-30)
+                ratio = (pri / denom_p) / torch.clamp(dua / denom_d,
+                                                      min=1e-30)
+                scale = torch.sqrt(ratio)[:, None]
+                want = ((scale > s.adaptive_rho_tolerance)
+                        | (scale < 1.0 / s.adaptive_rho_tolerance))
+                want = want & ~conv[:, None]
+                rho = torch.where(want, torch.clamp(rho * scale, qp.RHO_MIN,
+                                                    qp.RHO_MAX), rho)
     return PallasQPResult(x=x, y=y, z=z, iters=iters, pri_res=pri,
                           dua_res=dua, converged=conv, rho=rho,
                           precond=(D, E, c), kinv=Kinv, kinv_rho=kinv_at)

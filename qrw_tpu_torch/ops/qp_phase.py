@@ -31,6 +31,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from qrw_tpu_torch.utils.profiling import host_read, spanned
+
 X_CLIP = 100.0          # primal safeguard box [N]
 Y_CLIP = 1.0e4          # dual safeguard box
 
@@ -459,8 +461,9 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
     y = torch.empty((m, B), dtype=f32, device=dev)
     z = torch.empty((m, B), dtype=f32, device=dev)
     res = torch.empty((5, B), dtype=f32, device=dev)
-    w12 = torch.cat([data.wtop.reshape(6), data.wbot.reshape(6)]).to(
-        "cpu", torch.float32).numpy()
+    with host_read("k1_weights"):
+        w12 = torch.cat([data.wtop.reshape(6), data.wbot.reshape(6)]).to(
+            "cpu", torch.float32).numpy()
     w12_c = (ctypes.c_float * 12)(*[float(v) for v in w12])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.qrw_qp_phase_solve(
@@ -482,6 +485,7 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
     return x, y, z, res
 
 
+@spanned("mpc.k1")
 def solve(q, BlS, data: PhaseQPData, phases_of, x0=None, y0=None,
           n_iters: int = 300, eps_abs: float = 1e-4, eps_rel: float = 1e-4,
           tile: int = 128, check_every: int = 25,

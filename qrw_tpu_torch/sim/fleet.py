@@ -40,6 +40,7 @@ from qrw_tpu_torch.core.wbc_lane import compute_wbc_lane
 from qrw_tpu_torch.ops import rbd_lane as rl
 from qrw_tpu_torch.sim.physics import SimState, init_sim_state
 from qrw_tpu_torch.sim.physics_lane import step_lane
+from qrw_tpu_torch.utils.profiling import host_read, span
 
 
 class FleetCarry(NamedTuple):
@@ -161,7 +162,8 @@ def fleet_rollout(ctl: Controller, carry: FleetCarry, n_cycles: int,
     dtype = carry.sim_states.q.dtype
     dev_t = carry.sim_states.q.device
     lane_model = rl.solo12_lane()
-    cycle0 = int(carry.cycle)
+    with host_read("fleet_cycle"):
+        cycle0 = int(carry.cycle)
     if v_ref_schedule is not None:
         v_ref_schedule = torch.as_tensor(v_ref_schedule, dtype=dtype,
                                          device=dev_t)
@@ -178,11 +180,13 @@ def fleet_rollout(ctl: Controller, carry: FleetCarry, n_cycles: int,
 
     def pre_tick(cs, dev, k, v_ref6):
         """compute_pre with the estimator FK hoisted lane-major."""
-        qm = dev.q_mes.reshape(B, 4, 3).permute(1, 2, 0)
-        vm = dev.v_mes.reshape(B, 4, 3).permute(1, 2, 0)
-        kin = rl.frame_kinematics(lane_model, rl.ZV3, rl.EYE3, qm, None, vm)
-        pos = torch.stack([p.T for p in kin.pos], dim=2)
-        vel = torch.stack([p.T for p in kin.vel], dim=2)
+        with span("fleet.fk"):
+            qm = dev.q_mes.reshape(B, 4, 3).permute(1, 2, 0)
+            vm = dev.v_mes.reshape(B, 4, 3).permute(1, 2, 0)
+            kin = rl.frame_kinematics(lane_model, rl.ZV3, rl.EYE3, qm, None,
+                                      vm)
+            pos = torch.stack([p.T for p in kin.pos], dim=2)
+            vel = torch.stack([p.T for p in kin.vel], dim=2)
         return compute_pre(ctl, cs, dev, k, v_ref6, 0, perfect_estimator,
                            est_fk=(pos, vel))
 
@@ -199,10 +203,11 @@ def fleet_rollout(ctl: Controller, carry: FleetCarry, n_cycles: int,
                          res.v_des, res.tau_ff, f_ext=f_ext, terrain=terrain)
 
     if phase_offsets is not None:
-        offs = torch.as_tensor(np.asarray(phase_offsets), dtype=torch.int32,
-                               device=dev_t)
-        pers = torch.as_tensor(np.asarray(phase_periods), dtype=torch.int32,
-                               device=dev_t)
+        with host_read("fleet_phase_offsets"):
+            offs = torch.as_tensor(np.asarray(phase_offsets),
+                                   dtype=torch.int32, device=dev_t)
+            pers = torch.as_tensor(np.asarray(phase_periods),
+                                   dtype=torch.int32, device=dev_t)
 
     cs, ss, dev = carry.ctl_states, carry.sim_states, carry.devices
     lane_st, phases = carry.lane_state, carry.tile_phase

@@ -28,6 +28,7 @@ from qrw_tpu_torch.core.controller import (Controller, ControllerState,
 from qrw_tpu_torch.core.estimator import DeviceData
 from qrw_tpu_torch.core.joystick import v_ref_profile
 from qrw_tpu_torch.sim.physics import SimState, init_sim_state, step
+from qrw_tpu_torch.utils.profiling import span
 
 
 class RolloutCarry(NamedTuple):
@@ -151,10 +152,11 @@ def rollout(ctl: Controller, carry: RolloutCarry, n_ticks: int, k0: int = 0,
                                     joystick_code=jcodes[t],
                                     perfect_estimator=perfect_estimator,
                                     return_telemetry=True)
-        ss, device = step(cfg, ctl.model, ss, result.P, result.D,
-                          result.q_des, result.v_des, result.tau_ff,
-                          f_ext=None if f_exts is None else f_exts[t],
-                          terrain=terrain)
+        with span("physics"):
+            ss, device = step(cfg, ctl.model, ss, result.P, result.D,
+                              result.q_des, result.v_des, result.tau_ff,
+                              f_ext=None if f_exts is None else f_exts[t],
+                              terrain=terrain)
         if with_logs:
             entry = _tick_log(cs, ss, result, telem, v_ref)
             if logs is None:

@@ -139,11 +139,27 @@ def test_stage_timings():
 
 
 def test_trace_writes_a_file(tmp_path):
-    from qrw_tpu_torch.utils.profiling import trace
+    """One small CPU fleet cycle traced: the written trace holds the
+    port's layer spans as CPU ranges."""
+    import json
+    from qrw_tpu_torch.config import Config as TConfig
+    from qrw_tpu_torch.core import mpc_lane as tml
+    from qrw_tpu_torch.sim import fleet as tfl
+    from qrw_tpu_torch.utils.profiling import reset, trace
+    cfg = TConfig()
+    ps = tml.build_phase_data(cfg, tml.trot_phase_fsteps(cfg), device="cpu")
+    ctl, carry = tfl.make_fleet(cfg, 2, ps, tile=1, device="cpu")
     with trace(str(tmp_path)) as d:
-        torch.ones(8).cumsum(0)
+        tfl.fleet_rollout(ctl, carry, 1, ps, tile=1, with_logs=False)
+    reset()
     assert d == str(tmp_path)
-    assert any(f.endswith(".pt.trace.json") for f in os.listdir(tmp_path))
+    files = [f for f in os.listdir(tmp_path) if f.endswith(".pt.trace.json")]
+    assert len(files) == 1
+    with open(tmp_path / files[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"span:qrw.pre", "span:qrw.mpc.phase", "span:qrw.mpc.k1",
+            "span:qrw.wbc", "span:qrw.wbc.qp", "span:qrw.post",
+            "span:qrw.physics", "span:qrw.sync.wbc_qp_done"} <= names
 
 
 # ----------------------------------------------------------------------
