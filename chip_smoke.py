@@ -48,6 +48,14 @@ Phases (any failure ends the run with a non-zero exit):
    cap 48) on rescue problems assembled from walk phases, with a K_ref
    round beside every round; the bit check and the poisoned warm starts
    run at this shape too.
+   3e. The K^-1 kernel (qrw_tpu_torch/csrc/qp_kinv.cu: Cholesky and two
+   triangular solves, the factor of every K2 round) on KKT matrices at
+   its three shapes on the port's paths, (R, n) = (1024, 96), (2048,
+   144), (256, 192): its error against the float64 inverse at most
+   KINV_ERR_RATIO times the library's float32 route's; one problem made
+   not positive definite all NaN and flagged, the others bit-equal;
+   kernel, plain version and library timed as in 2, with the blocks an
+   SM holds.
 4. The rescue stage firing on the main path: a B = 1024 fleet through
    the entry point's functions at the CLI's rescue capacity (32), a few
    normal cycles, ONE crippled cycle (a 1-iteration phase solve, so
@@ -295,6 +303,14 @@ RESCUE_R = (32, 128)            # K2 batch sizes: B // 32 at B = 1024, 4096
 RESCUE_SCHEDULE = [50, 150, 150, 100]
 RESCUE_CYCLES = (2, 1, 5)       # normal, crippled, recovery cycles
 FULL_B = 1024                   # full-size K3 / K2 comparisons
+# the K^-1 kernel's shapes on the port's paths: the rolled batch's rescue
+# (R = B // 32 at 32,768), the fleet's (n = 144 at 65,536), the full-size
+# batch's Cholesky fallback (max(8, B // 32) at 8,192)
+KINV_SHAPES = (("rolled rescue", 1024, 96), ("fleet rescue", 2048, 144),
+               ("full-size fallback", 256, 192))
+# its float32 error against float64 may be at most this many times the
+# library's float32 Cholesky and solves' on the same problems
+KINV_ERR_RATIO = 4.0
 FULL_TIME_B = 4096              # the entry point's batch: kernel timings
 PATH_B = 512                    # whole full-size path, kernels vs plain
 PROFILE_ARGV = ["--batch", "4096", "--reps", "5", "--tiles", "16"]
@@ -1074,6 +1090,86 @@ def check_cone_nonfinite(cfg, device):
             torch.cuda.synchronize()
             compare_solves(f"K2 cone {label} from a {poison}-poisoned warm "
                            f"start", got, want, kp, pp, SOLVE_TOL)
+
+
+def kinv_work(B, n):
+    """Operations and bytes of one K^-1 launch: n^3 flop a problem (an SPD
+    inverse as LAPACK counts potrf + potri); K read and K^-1 written."""
+    return B * n ** 3, 8 * B * n * n
+
+
+def kinv_problems(cfg, B, n, device):
+    """B KKT matrices (B, n, n) at the settings' rho, assembled as
+    qp_pallas.solve assembles them: the trot rescue's (n = 96), the walk
+    rescue's (n = 144) or the full-size batch's (n = 192)."""
+    from qrw_tpu_torch.core import mpc_lane as ml
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    if n == 192:
+        return full_kkt(*full_problems(cfg, B, device))[0]
+    H, q, A, l, u, cone = rescue_problems(
+        cfg, B, device, gait="trot" if n == 96 else "walk")
+    s = ml.default_rescue_settings()
+    _, sig, rho_to_vec = qpp.precondition(H, q, A, l, u, s)
+    rho = torch.full((B, 1), s.rho, device=device)
+    return qpp._build_K(H, A, rho_to_vec(rho), sig, cone).contiguous()
+
+
+def check_kinv_kernel(cfg, device):
+    """Phase 3e: the K^-1 kernel (csrc/qp_kinv.cu) at the three shapes the
+    port gives it, on KKT matrices. Its error against the float64 inverse
+    of (K + K') / 2 is held to KINV_ERR_RATIO times the library's float32
+    error (torch.linalg.cholesky + cholesky_solve, the port's route before
+    the kernel); one problem made not positive definite comes back all NaN
+    and flagged while the others keep their bits. Times the kernel, its
+    plain version and the library. Returns {"B<B>_n<n>": entry}."""
+    from qrw_tpu_torch.ops import qp_pallas as qpp
+    out = {}
+    for label, B, n in KINV_SHAPES:
+        K = kinv_problems(cfg, B, n, device)
+        launches = qpp.KINV_LAUNCHES
+        X, nonpd = qpp._kinv_launch(K)
+        assert qpp.KINV_LAUNCHES == launches + 1
+        K64 = K.double()
+        K64 = (K64 + K64.transpose(1, 2)) / 2
+        eye = torch.eye(n, device=device).expand(B, n, n)
+        X64 = torch.cholesky_solve(eye.double(), torch.linalg.cholesky(K64))
+        library = lambda: torch.cholesky_solve(  # noqa: E731
+            eye, torch.linalg.cholesky((K + K.transpose(1, 2)) / 2))
+        scale = X64.abs().amax(dim=(1, 2))
+        err = lambda Y: float(((Y.double() - X64).abs().amax(dim=(1, 2))
+                               / scale).max())
+        plain, plain_bad = qpp._chol_inv_plain(K)
+        e_k, e_lib, e_plain = err(X), err(library()), err(plain)
+        assert int(nonpd.sum()) == 0 and not bool(plain_bad.any())
+        assert e_k <= KINV_ERR_RATIO * e_lib, (label, e_k, e_lib)
+        j = B // 2
+        Kb = K.clone()
+        Kb[j, n // 2, n // 2] = -1.0      # a negative pivot
+        Xb, nb = qpp._kinv_launch(Kb)
+        others = torch.arange(B, device=device) != j
+        assert nb.tolist() == [int(i == j) for i in range(B)], label
+        assert bool(torch.isnan(Xb[j]).all()), label
+        assert torch.equal(Xb[others], X[others]), label
+        k_ms = time_ms(lambda: qpp._kinv_launch(K))
+        p_ms = time_ms(lambda: qpp._chol_inv_plain(K))
+        l_ms = time_ms(library)
+        b_ms, b_by = bound(*kinv_work(B, n))
+        blocks = qpp.kinv_blocks_per_sm(n)
+        log(f"K^-1 kernel ({label}) B={B} n={n}: {blocks} blocks an SM; "
+            f"rel. err vs float64 "
+            f"{e_k:.3e} (library {e_lib:.3e}, plain {e_plain:.3e}); "
+            f"non-PD problem all NaN, the others bit-equal; "
+            f"{k_ms[0]:.4f} ms [{k_ms[1]:.4f}-{k_ms[2]:.4f}] (bound "
+            f"{b_ms:.4f} ms, {b_by}: {100 * b_ms / k_ms[0]:.1f}%), plain "
+            f"{p_ms[0]:.4f} ms, library {l_ms[0]:.4f} ms")
+        out[f"B{B}_n{n}"] = {
+            "path": label, "ms": k_ms[0], "plain_ms": p_ms[0],
+            "library_ms": l_ms[0], "bound_ms": b_ms, "bound_by": b_by,
+            "share": b_ms / k_ms[0], "rel_err": e_k,
+            "library_rel_err": e_lib, "blocks_per_sm": blocks}
+        del K, K64, X64, X, Xb, Kb, plain
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_rescue_path(cfg, device):
@@ -3015,6 +3111,7 @@ def main() -> int:
     from qrw_tpu_torch.config import Config
     from qrw_tpu_torch import kernels
     from qrw_tpu_torch.core import mpc_lane as ml
+    from qrw_tpu_torch.ops import qp_pallas as qpp
 
     device = "cuda"
     card = card_line()
@@ -3070,8 +3167,12 @@ def main() -> int:
         check_rescue_kernel(cfg, device, gait="walk")
     check_cone_bits(cfg, device)
     check_cone_nonfinite(cfg, device)
-    clock.lap("kernel build, K1 and K2 checks")
+    kinv = check_kinv_kernel(cfg, device)
+    clock.lap("kernel build, K1, K2 and K^-1 checks")
+    kinv_launches = qpp.KINV_LAUNCHES
     k2_launches = run_rescue_path(cfg, device)
+    kinv_launches = qpp.KINV_LAUNCHES - kinv_launches
+    assert kinv_launches > 0
     launches, _ = run_main_path(cfg, device)
     check_slice(cfg, ps, device)
     capture, _ = run_shakedown(cfg, device)
@@ -3191,7 +3292,12 @@ def main() -> int:
         "ns0_plain_ms": k3_ns0["plain_ms"],
         "ns0_library_ms": k3_ns0["library_ms"],
         "ns0_bound_ms": k3_ns0["bound"][0],
-        "ns0_bound_f32_ms": k3_ns0["bound_f32"][0]}]}))
+        "ns0_bound_f32_ms": k3_ns0["bound_f32"][0]}, {
+        "name": "qp_kinv", "route": "cuda",
+        "source": "qrw_tpu_torch/csrc/qp_kinv.cu",
+        "replaces": None, "stands_for": "qrw_tpu/ops/qp_pallas.py:254",
+        "launches": kinv_launches, "path": "rescue (phase 4)",
+        "shapes": kinv}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

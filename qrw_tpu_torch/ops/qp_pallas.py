@@ -8,8 +8,9 @@ Port of qrw_tpu/ops/qp_pallas.py (`solve`, `_build_K`, `_chol_inv`,
   (D, E, c) enters only as the diagonal sigma' = (sigma / c) D^-2 and
   rho' = (1 / c) E^2 rho_class;
 * per round, K = P + diag(sigma') + A' diag(rho') A is assembled and
-  K^-1 obtained by `_factor`: a fresh batched Cholesky (plain PyTorch, as
-  it was plain JAX), or, on the first round of a warm call, a guarded
+  K^-1 obtained by `_factor`: a fresh batched Cholesky and two
+  triangular solves (one launch of csrc/qp_kinv.cu; plain JAX in the
+  JAX package), or, on the first round of a warm call, a guarded
   Newton-Schulz refinement of the carried inverse (kernel K3) with a
   fixed-capacity Cholesky fallback for the worst seeds;
 * the ADMM kernel K2 runs exactly `n_iters` steps and one residual pass;
@@ -21,12 +22,13 @@ Port of qrw_tpu/ops/qp_pallas.py (`solve`, `_build_K`, `_chol_inv`,
   problem, converged or not;
 * `early_exit` skips the remaining rounds once every problem passes.
 
-`_run_kernel` and `_ns_refine` are the dispatchers: CUDA tensors go to
-the hand-written kernels in qrw_tpu_torch/csrc/qp_admm.cu and (K3, by n,
-`ns_variant`) qrw_tpu_torch/csrc/qp_ns_refine_tc.cu or qp_ns_refine.cu,
-CPU tensors to `_run_kernel_plain` and `_ns_refine_plain`, the same
-equations in plain PyTorch. A CUDA tensor never falls back to a plain
-version.
+`_run_kernel`, `_ns_refine` and `_chol_inv` are the dispatchers: CUDA
+tensors go to the hand-written kernels in qrw_tpu_torch/csrc/qp_admm.cu,
+(K3, by n, `ns_variant`) qrw_tpu_torch/csrc/qp_ns_refine_tc.cu or
+qp_ns_refine.cu, and (K^-1) qrw_tpu_torch/csrc/qp_kinv.cu, CPU tensors
+to `_run_kernel_plain`, `_ns_refine_plain` and `_chol_inv_plain`, the
+same equations in plain PyTorch. A CUDA tensor never falls back to a
+plain version.
 """
 
 from __future__ import annotations
@@ -37,18 +39,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from qrw_tpu_torch.ops import qp
-from qrw_tpu_torch.utils.profiling import host_read, span, spanned
+from qrw_tpu_torch.ops import lin, qp
+from qrw_tpu_torch.utils.profiling import (active, count, host_read, span,
+                                           spanned)
 
 # Launches of the CUDA kernels on CUDA tensors: K2 (one per ADMM round)
 # by variant, the dense variant's (cone=None) in all and the cone
-# variant's by n, and K3 (one per Newton-Schulz refinement in `_factor`,
-# either variant), of them the general variant's alone. chip_smoke.py
-# resets them before a run of the main path and reads them after.
+# variant's by n, K3 (one per Newton-Schulz refinement in `_factor`,
+# either variant), of them the general variant's alone, and the K^-1
+# kernel (one per `_chol_inv`). chip_smoke.py resets them before a run
+# of the main path and reads them after.
 DENSE_KERNEL_LAUNCHES = 0
 CONE_LAUNCHES_BY_N = {}
 NS_KERNEL_LAUNCHES = 0
 NS_GENERAL_KERNEL_LAUNCHES = 0
+KINV_LAUNCHES = 0
 
 
 class PallasQPResult(NamedTuple):
@@ -105,13 +110,39 @@ def _build_K(P, A, rho_vec, sig_vec, cone=None):
     return K
 
 
-def _chol_inv(K):
-    """K^-1 of a batch of SPD matrices: Cholesky, then a solve against
-    the identity."""
-    with host_read("qp_chol_info"):
-        C = torch.linalg.cholesky(K)
+def _chol_inv_plain(K):
+    """Plain PyTorch version of the K^-1 kernel: the factor of
+    (K + K') / 2 (jnp.linalg.cholesky symmetrizes its input) through
+    `cholesky_ex` (no status read), then the two triangular solves
+    against the identity (ops/lin). Returns (K^-1, nonpd (B,) bool): a
+    problem whose factor failed, or whose pivots are not all finite, gets
+    NaN in its whole K^-1, as jnp.linalg.cholesky gives."""
+    L, info = torch.linalg.cholesky_ex((K + K.transpose(-1, -2)) / 2)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
-    return torch.cholesky_solve(eye.expand(K.shape), C)
+    X = lin.solve_upper_t(L, lin.solve_lower(L, eye.expand(K.shape)))
+    diag = torch.diagonal(L, dim1=-2, dim2=-1)
+    bad = (info != 0) | ~torch.isfinite(diag).all(dim=-1)
+    return torch.where(bad[:, None, None], float("nan"), X), bad
+
+
+def _chol_inv(K):
+    """K^-1 of a batch of SPD matrices K (B, n, n): Cholesky, then two
+    triangular solves against the identity. The kernel for CUDA tensors,
+    the plain version for CPU tensors, ValueError elsewhere; neither
+    reads anything back. A problem that is not positive definite gets NaN
+    in its whole K^-1; the others are untouched. Counts the problems
+    ("qp.kinv_lanes", a host number) and those set to NaN
+    ("qp.kinv_nonpd", summed on the device) while a profiler runs."""
+    if K.device.type == "cpu":
+        X, bad = _chol_inv_plain(K)
+    elif K.device.type == "cuda":
+        X, bad = _kinv_launch(K.contiguous())
+    else:
+        raise ValueError(f"qp_pallas: unsupported device {K.device}")
+    if active():
+        count("qp.kinv_lanes", K.shape[0])
+        count("qp.kinv_nonpd", bad.sum())
+    return X
 
 
 def _ns_refine_plain(K, X0, ns_iters: int):
@@ -142,8 +173,8 @@ def _ns_refine(K, X0, ns_iters: int):
 
 
 def _factor(K, kinv_init=None, ns_iters: int = 3, seed_scale=None):
-    """K^-1 of the assembled KKT matrices K (B, n, n). Cold: Cholesky
-    and a solve. Warm (kinv_init given): the seed, scaled by seed_scale
+    """K^-1 of the assembled KKT matrices K (B, n, n). Cold: `_chol_inv`.
+    Warm (kinv_init given): the seed, scaled by seed_scale
     (B, 1) = rho_old / rho_new, is refined by `ns_iters` Newton-Schulz
     steps (K3); a problem whose residual max|K X - I| is not finite or
     above 1e-2 is bad. The `cap` = min(B, max(8, B // 32)) largest
@@ -305,6 +336,10 @@ def _cfunc():
         lib.qrw_ns_refine_tc.restype = _I
         lib.qrw_ns_refine_tc_max_active_clusters.argtypes = [_P]
         lib.qrw_ns_refine_tc_max_active_clusters.restype = _I
+        lib.qrw_kinv.argtypes = [_P] * 3 + [_I] * 2 + [_P]
+        lib.qrw_kinv.restype = _I
+        lib.qrw_kinv_blocks_per_sm.argtypes = [_I, _P]
+        lib.qrw_kinv_blocks_per_sm.restype = _I
     return lib
 
 
@@ -471,6 +506,44 @@ def _ns_launch(K, X0, ns_iters: int, variant: str = None):
         NS_GENERAL_KERNEL_LAUNCHES += 1
         X = 0.5 * (X + X.transpose(1, 2))
     return X, resid
+
+
+# The largest n of the K^-1 kernel (csrc/qp_kinv.cu): a 6 x 6 tile of
+# each matrix a thread, at most 32 x 32 threads a block
+KINV_MAX_N = 192
+
+
+def _kinv_launch(K):
+    """Launch the K^-1 kernel on the current stream, one block per
+    problem. Returns (K^-1 (B, n, n), nonpd (B,) int32: 1 where the whole
+    K^-1 is NaN)."""
+    global KINV_LAUNCHES
+    B, n = K.shape[0], K.shape[-1]
+    _check("K", K, (B, n, n), K.device)
+    if n > KINV_MAX_N:
+        raise ValueError(f"kinv kernel: n = {n} > {KINV_MAX_N}, the largest "
+                         f"n whose factor fits a block's shared memory and "
+                         f"whose 6 x 6 tiles fit its 1,024 threads")
+    if B < 1 or B > 2 ** 31 - 1 or n < 1:
+        raise ValueError(f"kinv kernel: batch {B} of n = {n} out of range")
+    lib = _cfunc()
+    X = torch.empty_like(K)
+    nonpd = torch.empty((B,), dtype=torch.int32, device=K.device)
+    err = lib.qrw_kinv(K.data_ptr(), X.data_ptr(), nonpd.data_ptr(), B, n,
+                       torch.cuda.current_stream(K.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kinv kernel launch failed: CUDA error {err}")
+    KINV_LAUNCHES += 1
+    return X, nonpd
+
+
+def kinv_blocks_per_sm(n: int) -> int:
+    """Blocks of the K^-1 kernel at n an SM holds at once."""
+    out = ctypes.c_int(0)
+    err = _cfunc().qrw_kinv_blocks_per_sm(int(n), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"kinv kernel occupancy query: CUDA error {err}")
+    return out.value
 
 
 @spanned("qp.k2")

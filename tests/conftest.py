@@ -29,3 +29,9 @@ jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 assert jax.default_backend() == "cpu", jax.default_backend()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skips without one (run "
+        "tests/test_torch_kinv_card.py on the card with --noconftest)")

@@ -46,7 +46,7 @@ FLEET_PARENTS = {
     "reduced.plan": "reduced", "qp.cone_check": "qp.solve",
     "sync.qp_cone_check": "qp.cone_check", "qp.precondition": "qp.solve",
     "qp.factor": "qp.solve", "qp.k2": "qp.solve", "qp.rho": "qp.solve",
-    "sync.qp_early_exit": "qp.solve", "sync.qp_chol_info": "qp.factor",
+    "sync.qp_early_exit": "qp.solve",
     "wbc.ik": "wbc", "wbc.qp_data": "wbc", "wbc.qp": "wbc",
     "wbc.torques": "wbc", "wbc.qp.factor": "wbc.qp",
     "wbc.qp.iterate": "wbc.qp", "sync.wbc_qp_done": "wbc.qp",
@@ -64,7 +64,7 @@ FULLSIZE_PARENTS = {
     "fullsize.plan": "fullsize", "qp.cone_check": "qp.solve",
     "qp.precondition": "qp.solve", "qp.factor": "qp.solve",
     "qp.k3": "qp.factor", "qp.k2": "qp.solve", "qp.rho": "qp.solve",
-    "sync.qp_chol_info": "qp.factor", "sync.mpc_cone": "fullsize.build",
+    "sync.mpc_cone": "fullsize.build",
 }
 SINGLE_PARENTS = {"pre": None, "mpc": None, "post": None, "wbc": "post",
                   "physics": None}
@@ -188,10 +188,19 @@ def test_outputs_bitwise_equal_with_the_profiler(path, request):
 
 
 def test_rescued_counter_is_the_logs_sum(fleet):
+    """The rescued lanes, and the problems that the rescue's factor
+    inverted: its R = rescue_cap = 2 lanes in each round's `qp.factor`
+    (no read of the factor's status, so no `sync.qp_*` span in it), none
+    of them set to NaN."""
     logs = [cl for _, _, cl in fleet["traced"]]
     rescued = sum(int(cl.rescued.sum()) for cl in logs)
     assert rescued == 2                       # the crippled cycle's two
     assert fleet["counts"]["mpc.rescued"] == rescued
+    rounds = sum(1 for *_, m in fleet["spans"] if m == "qp.factor")
+    assert rounds >= 1
+    assert fleet["counts"]["qp.kinv_lanes"] == 2 * rounds
+    assert fleet["counts"]["qp.kinv_nonpd"] == 0
+    assert not any(m.startswith("sync.qp_chol") for *_, m in fleet["spans"])
 
 
 def test_k1_counters_are_the_tile_maxima(fleet):

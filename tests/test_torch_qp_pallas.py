@@ -254,3 +254,65 @@ def test_solve_nonfinite_warm_start_resets(problem, cold):
                                   np.asarray(want.converged))
     np.testing.assert_array_equal(_np(got.iters), np.asarray(want.iters))
     _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_chol_inv_parity(dtype):
+    """The plain K^-1 (`_chol_inv` on CPU tensors: cholesky_ex of
+    (K + K') / 2, then two triangular solves) against qrw_tpu's
+    `_chol_inv` on random SPD batches at the rescue's n = 96 and the
+    fleet rescue's n = 144, with K not bitwise symmetric (as `_build_K`
+    can give it), so that both read the symmetrized matrix. Condition
+    numbers ~4e3-6e3. float64: 1e-10 of the largest entry (measured
+    8e-14: the same factor, XLA's own triangular solves). float32: 5e-4
+    (measured 4.8e-5; two float32 orders of one solve differ by up to
+    cond x eps ~ 3.6e-4)."""
+    rng = np.random.default_rng(4)
+    tol = 1e-10 if dtype == np.float64 else 5e-4
+    for n in (96, 144):
+        M = rng.normal(size=(3, n, n))
+        K = M @ M.transpose(0, 2, 1) + 0.1 * np.eye(n)
+        K = (K + np.triu(rng.normal(scale=1e-6, size=K.shape), 1)
+             ).astype(dtype)
+        want = np.asarray(jqpp._chol_inv(jnp.asarray(K)))
+        got = _np(tqpp._chol_inv(torch.as_tensor(K)))
+        assert got.dtype == want.dtype == dtype
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=tol * np.abs(want).max(),
+                                   err_msg=f"n = {n}")
+
+
+def test_solve_nonpd_problem_fails_alone():
+    """One problem that is not positive definite fails alone, as in
+    qrw_tpu: B = 4 random QPs (n = 6, m = 8, seed 0), problem 2's P all
+    NaN, max_iter 100, tile 4. qrw_tpu's Cholesky gives NaN for that
+    problem, so its K^-1, x and flag go non-finite and unconverged
+    while the other three solve; the port used to raise LinAlgError for
+    the whole batch. Flags equal, x finite on lanes 0, 1, 3 and within
+    the module's tolerance of qrw_tpu's there."""
+    rng = np.random.default_rng(0)
+    Bq, n, m = 4, 6, 8
+    M = rng.normal(size=(Bq, n, n))
+    P = M @ M.transpose(0, 2, 1) + np.eye(n)
+    P[2] = np.nan
+    q = rng.normal(size=(Bq, n))
+    A = rng.normal(size=(m, n))
+    u = 1.0 + np.abs(rng.normal(size=(Bq, m)))
+    l = -u
+    P, q, A, l, u = (a.astype(np.float32) for a in (P, q, A, l, u))
+    st = jqp.QPSettings(max_iter=100)
+    want = jqpp.solve(*map(jnp.asarray, (P, q, A, l, u)), st, tile=Bq,
+                      interpret=True)
+    got = tqpp.solve(*map(torch.as_tensor, (P, q, A, l, u)),
+                     tqp.QPSettings(*st), tile=Bq)
+    np.testing.assert_array_equal(np.asarray(want.converged),
+                                  [True, True, False, True])
+    np.testing.assert_array_equal(_np(got.converged),
+                                  np.asarray(want.converged))
+    ok = [0, 1, 3]
+    assert np.isfinite(_np(got.x)[ok]).all()
+    assert not np.isfinite(_np(got.kinv)[2]).any()
+    assert np.isfinite(_np(got.kinv)[ok]).all()
+    w = np.asarray(want.x)[ok]
+    np.testing.assert_allclose(_np(got.x)[ok], w, rtol=0,
+                               atol=1e-4 * np.abs(w).max() + 1e-6)

@@ -10,7 +10,9 @@ in the benchmark's own code where no port frame is on the stack) and
 printed with how often it fired and whether it fired inside a
 `utils/profiling.host_read` span (`qrw.sync.<site>`). A site outside
 every such span is a library call that synchronizes on its own (name it)
-or a read to wrap. With --out, also writes the sites as JSON to PATH.
+or a read to wrap. Also prints the cycle's launches of the K^-1 kernel
+(`ops/qp_pallas.KINV_LAUNCHES`). With --out, also writes the sites as
+JSON to PATH.
 Needs the card.
 """
 
@@ -28,6 +30,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from qrwbench import harness  # noqa: E402
+from qrw_tpu_torch.ops import qp_pallas  # noqa: E402
 from qrw_tpu_torch.utils import profiling  # noqa: E402
 
 PORT = os.path.join(ROOT, "qrw_tpu_torch")
@@ -98,6 +101,7 @@ def main(argv):
 
         saved = warnings.showwarning
         warnings.showwarning = show
+        kinv0 = qp_pallas.KINV_LAUNCHES
         t0 = time.perf_counter()
         try:
             with warnings.catch_warnings():
@@ -112,16 +116,18 @@ def main(argv):
         finally:
             warnings.showwarning = saved
         wall = time.perf_counter() - t0
+        kinv = qp_pallas.KINV_LAUNCHES - kinv0
         cell.close()
         rows = []
         for (site, fn), n in sorted(hits.items(), key=lambda kv: -kv[1]):
             spans = sorted(s or "-" for s in inside[(site, fn)])
             rows.append({"site": site, "function": fn, "code": code[(site, fn)],
                          "count": n, "host_read": spans})
-        report[name] = {"cycle_s": wall, "sites": rows}
+        report[name] = {"cycle_s": wall, "sites": rows,
+                        "kinv_launches": kinv}
         print(f"== {name}: one cycle {wall:.3f} s, "
               f"{sum(hits.values())} synchronizing calls at {len(rows)} "
-              f"sites", flush=True)
+              f"sites, {kinv} K^-1 launches", flush=True)
         for r in rows:
             mark = "ok " if "-" not in r["host_read"] else "OUT"
             print(f"  {mark} {r['count']:5d}  {r['site']}  {r['function']}: "
