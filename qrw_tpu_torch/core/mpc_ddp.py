@@ -37,6 +37,7 @@ from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.mpc import gait_from_fsteps
 from qrw_tpu_torch.ops import ilqr
 from qrw_tpu_torch.ops.rotations import rot_z, skew
+from qrw_tpu_torch.utils.profiling import span, spanned
 
 # Reference weight derivation (MPC_crocoddyl.py:44-66)
 STATE_WEIGHTS = np.sqrt(np.array(
@@ -97,8 +98,9 @@ class DDPResult(NamedTuple):
 
 
 class Consts(NamedTuple):
-    """The model's constant tensors, made once per solve on its device
-    (a tensor made from host data is a copy to the card)."""
+    """The model's constant tensors, made once per (model, dtype,
+    device) and kept there: a tensor made from host data is a copy that
+    blocks the host."""
     gI: torch.Tensor        # (3, 3) inertia
     com_off: torch.Tensor   # (3,) CoM offset
     grav: torch.Tensor      # (3,) gravity acceleration
@@ -108,8 +110,20 @@ class Consts(NamedTuple):
     zero: torch.Tensor      # () 0
 
 
+_CONSTS_CACHE: dict = {}
+
+
 def make_consts(cfg: Config, dtype, device,
                 state_weights=STATE_WEIGHTS) -> Consts:
+    w = np.asarray(state_weights, dtype=np.float64)
+    key = (tuple(cfg.gI), cfg.offset_com_z, cfg.gravity, w.tobytes(),
+           dtype, str(device))
+    if key not in _CONSTS_CACHE:
+        _CONSTS_CACHE[key] = _new_consts(cfg, w, dtype, device)
+    return _CONSTS_CACHE[key]
+
+
+def _new_consts(cfg: Config, state_weights, dtype, device) -> Consts:
     kw = dict(dtype=dtype, device=device)
     return Consts(
         gI=torch.as_tensor(np.asarray(cfg.gI).reshape(3, 3), **kw),
@@ -198,6 +212,7 @@ def _stage_cost(cfg: Config, x, u, xref_k, feet_k, gait_k, k: Consts,
     return c + 0.5 * FRICTION_WEIGHT * (viol ** 2).sum((-1, -2))
 
 
+@spanned("ddp")
 def solve_mpc_ddp(cfg: Config, xref, fsteps,
                   state: Optional[DDPState] = None,
                   settings: DDPSettings = DDPSettings(),
@@ -212,7 +227,32 @@ def solve_mpc_ddp(cfg: Config, xref, fsteps,
     next gait boundary (MPC_crocoddyl_2's dt_tsid first node,
     scripts/crocoddyl_eval/test_5/main.py:85). shift_warm: in that mode
     the warm start is shifted one node only on the boundary (a bool or
-    a bool tensor broadcast over the batch axes)."""
+    a bool tensor broadcast over the batch axes).
+
+    Under a profiler: the span `qrw.ddp`, in it `qrw.ddp.setup` (the
+    gait, the warm start, the constants) and `qrw.ilqr`."""
+    with span("ddp.setup"):
+        args = _setup(cfg, xref, fsteps, state, settings, dt_first,
+                      shift_warm)
+    bs = tuple(xref.shape[:-2])
+    N = cfg.n_steps
+    res = ilqr.solve(**args, settings=settings.to_ilqr())
+    x_f = torch.cat([res.xs[:, 1:].transpose(1, 2),
+                     res.us.transpose(1, 2)], 1)             # (B, 24, N)
+    return DDPResult(
+        x_f_applied=x_f.reshape(bs + (24, N)),
+        state=DDPState(xs=res.xs.reshape(bs + (N + 1, 12)),
+                       us=res.us.reshape(bs + (N, 12))),
+        cost=res.cost.reshape(bs),
+        cost_trace=res.cost_trace.reshape(bs + (settings.max_iters,)),
+        iters=torch.full(bs, settings.max_iters, dtype=torch.int32,
+                         device=xref.device))
+
+
+def _setup(cfg: Config, xref, fsteps, state, settings: DDPSettings,
+           dt_first, shift_warm):
+    """The iLQR problem of solve_mpc_ddp: ilqr.solve's arguments up to
+    its settings."""
     N = cfg.n_steps
     dtype, dev = xref.dtype, xref.device
     bs = tuple(xref.shape[:-2])
@@ -259,19 +299,7 @@ def solve_mpc_ddp(cfg: Config, xref, fsteps,
         return _stage_cost(cfg, x, None, xref_T, feet_T, gait_T,
                            terminal=True, k=consts)
 
-    res = ilqr.solve(step, cost, cost_T, x0, us0,
-                     node_args=(feet, gait, xref_n, dt),
-                     term_args=(xref_n[:, -1], feet[:, -1], gait[:, -1]),
-                     settings=settings.to_ilqr(),
-                     project_u=lambda u, k: u * umask[:, k])
-
-    x_f = torch.cat([res.xs[:, 1:].transpose(1, 2),
-                     res.us.transpose(1, 2)], 1)             # (B, 24, N)
-    return DDPResult(
-        x_f_applied=x_f.reshape(bs + (24, N)),
-        state=DDPState(xs=res.xs.reshape(bs + (N + 1, 12)),
-                       us=res.us.reshape(bs + (N, 12))),
-        cost=res.cost.reshape(bs),
-        cost_trace=res.cost_trace.reshape(bs + (settings.max_iters,)),
-        iters=torch.full(bs, settings.max_iters, dtype=torch.int32,
-                         device=dev))
+    return dict(step=step, cost=cost, cost_T=cost_T, x0=x0, us0=us0,
+                node_args=(feet, gait, xref_n, dt),
+                term_args=(xref_n[:, -1], feet[:, -1], gait[:, -1]),
+                project_u=lambda u, k: u * umask[:, k])

@@ -10,7 +10,15 @@ line search over the crocoddyl alpha schedule (2^-k) as one more batch
 axis, and a Levenberg regularization adapted per problem, as
 crocoddyl's increase/decreaseRegularization. Each problem keeps its own
 accept/reject decision. The solve runs a fixed `max_iters` and reads
-nothing back to the host.
+nothing back to the host: its constants (the step sizes, the identity)
+are made once per (schedule, dtype, device) and kept on the device.
+
+Under a profiler the solve opens the span `qrw.ilqr`, in it
+`qrw.ilqr.rollout` and, each iteration, `qrw.ilqr.derivs` (the
+`torch.func` derivatives), `qrw.ilqr.backward` (the Riccati sweep),
+`qrw.ilqr.linesearch` and `qrw.ilqr.accept`; it counts `ilqr.problems`
+(problems x iterations) and `ilqr.accepted` (the iterations a problem
+accepted, summed on the card).
 
 A problem is given as functions of one node of one problem, written so
 that they broadcast over leading axes (they also run under
@@ -32,6 +40,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 from torch.func import jacfwd, jacrev, vmap
 
+from qrw_tpu_torch.utils.profiling import active, count, span, spanned
+
 
 class ILQRSettings(NamedTuple):
     max_iters: int = 10
@@ -50,6 +60,20 @@ class ILQRResult(NamedTuple):
     us: torch.Tensor          # (B, N, m) optimized controls
     cost: torch.Tensor        # (B,) final total cost
     cost_trace: torch.Tensor  # (B, max_iters) accepted cost per iteration
+
+
+_CONST_CACHE: dict = {}
+
+
+def _constants(alphas: tuple, m: int, dtype, device):
+    """(the m x m identity, the step sizes) on the device, made once: a
+    tensor made from host data is a copy that blocks the host."""
+    key = (alphas, m, dtype, str(device))
+    if key not in _CONST_CACHE:
+        _CONST_CACHE[key] = (
+            torch.eye(m, dtype=dtype, device=device),
+            torch.tensor(alphas, dtype=dtype, device=device))
+    return _CONST_CACHE[key]
 
 
 def _mv(M, v):
@@ -72,6 +96,7 @@ def _terminal_second_order(fn):
     return jacfwd(grad, has_aux=True)
 
 
+@spanned("ilqr")
 def solve(step: Callable, cost: Callable, cost_T: Callable,
           x0: torch.Tensor, us0: torch.Tensor,
           node_args: Sequence[torch.Tensor] = (),
@@ -109,74 +134,87 @@ def solve(step: Callable, cost: Callable, cost_T: Callable,
     l_fn = vmap(_second_order(cost))
     lT_fn = vmap(_terminal_second_order(cost_T))
     flat = [a.reshape((B * N,) + a.shape[2:]) for a in node_args]
-    eye = torch.eye(m, dtype=dtype, device=dev)
-    alphas = torch.tensor(settings.alphas, dtype=dtype, device=dev)
+    eye, alphas = _constants(tuple(settings.alphas), m, dtype, dev)
     A = alphas.shape[0]
     rows = torch.arange(B, device=dev)
 
-    xs, cost_now = rollout(us0)
+    count("ilqr.problems", B * settings.max_iters)
+    with span("ilqr.rollout"):
+        xs, cost_now = rollout(us0)
     us = us0
     reg = torch.full((B,), settings.reg_init, dtype=dtype, device=dev)
     trace = []
     for _ in range(settings.max_iters):
-        X = xs[:, :-1].reshape(B * N, n)
-        U = us.reshape(B * N, m)
-        fx, fu = fxu_fn(X, U, *flat)
-        ((lxx, _), (lux, luu)), (lx, lu) = l_fn(X, U, *flat)
-        fx, fu = fx.reshape(B, N, n, n), fu.reshape(B, N, n, m)
-        lx, lu = lx.reshape(B, N, n), lu.reshape(B, N, m)
-        lxx = lxx.reshape(B, N, n, n)
-        luu, lux = luu.reshape(B, N, m, m), lux.reshape(B, N, m, n)
-        Vxx, Vx = lT_fn(xs[:, -1], *term_args)
-        reg_I = reg[:, None, None] * eye
-
-        kffs, Ks = [None] * N, [None] * N
-        for k in reversed(range(N)):
-            fxT = fx[:, k].transpose(-1, -2)
-            fuT = fu[:, k].transpose(-1, -2)
-            Qx = lx[:, k] + _mv(fxT, Vx)
-            Qu = lu[:, k] + _mv(fuT, Vx)
-            Qxx = lxx[:, k] + fxT @ Vxx @ fx[:, k]
-            Quu = luu[:, k] + fuT @ Vxx @ fu[:, k] + reg_I
-            Qux = lux[:, k] + fuT @ Vxx @ fx[:, k]
-            # LU solve without a status check: Quu can transiently lose
-            # PD-ness at early iterates (active-set switches in the
-            # penalty Hessians); a singular Quu gives non-finite gains,
-            # and the line search then rejects every alpha of it
-            sol = torch.linalg.solve_ex(
-                Quu, torch.cat([Qu[..., None], Qux], -1),
-                check_errors=False).result
-            kff, K = -sol[..., 0], -sol[..., 1:]
-            KT = K.transpose(-1, -2)
-            QuxT = Qux.transpose(-1, -2)
-            Vx = Qx + _mv(KT @ Quu, kff) + _mv(KT, Qu) + _mv(QuxT, kff)
-            Vxx = Qxx + KT @ Quu @ K + KT @ Qux + QuxT @ K
-            Vxx = 0.5 * (Vxx + Vxx.transpose(-1, -2))
-            kffs[k], Ks[k] = kff, K
-
-        # the line search: every alpha at once, (A, B, ...)
-        x = x0.expand(A, B, n)
-        xs_c, us_c = [x], []
-        for k in range(N):
-            u = project_u(us[:, k] + alphas[:, None, None] * kffs[k]
-                          + _mv(Ks[k], x - xs[:, k]), k)
-            x = step(x, u, *at(k, (A,)))
-            xs_c.append(x)
-            us_c.append(u)
-        xs_c, us_c = torch.stack(xs_c, 2), torch.stack(us_c, 2)
-        costs = total_cost(xs_c, us_c, (A,))
-        costs = torch.where(torch.isnan(costs), torch.inf, costs)
-        best = torch.argmin(costs, dim=0)                       # (B,)
-        best_cost = costs[best, rows]
-        improved = best_cost < cost_now
-        xs = torch.where(improved[:, None, None], xs_c[best, rows], xs)
-        us = torch.where(improved[:, None, None], us_c[best, rows], us)
-        cost_now = torch.where(improved, best_cost, cost_now)
-        reg = torch.where(improved,
-                          torch.clamp(reg * settings.reg_dec,
-                                      min=settings.reg_min),
-                          torch.clamp(reg * settings.reg_inc,
-                                      max=settings.reg_max))
-        trace.append(cost_now)
+        with span("ilqr.derivs"):
+            X = xs[:, :-1].reshape(B * N, n)
+            U = us.reshape(B * N, m)
+            fx, fu = fxu_fn(X, U, *flat)
+            ((lxx, _), (lux, luu)), (lx, lu) = l_fn(X, U, *flat)
+            fx, fu = fx.reshape(B, N, n, n), fu.reshape(B, N, n, m)
+            lx, lu = lx.reshape(B, N, n), lu.reshape(B, N, m)
+            lxx = lxx.reshape(B, N, n, n)
+            luu, lux = luu.reshape(B, N, m, m), lux.reshape(B, N, m, n)
+            Vxx, Vx = lT_fn(xs[:, -1], *term_args)
+        with span("ilqr.backward"):
+            kffs, Ks = _backward(fx, fu, lx, lu, lxx, lux, luu, Vx, Vxx,
+                                 reg[:, None, None] * eye)
+        with span("ilqr.linesearch"):
+            # every alpha at once, (A, B, ...)
+            x = x0.expand(A, B, n)
+            xs_c, us_c = [x], []
+            for k in range(N):
+                u = project_u(us[:, k] + alphas[:, None, None] * kffs[k]
+                              + _mv(Ks[k], x - xs[:, k]), k)
+                x = step(x, u, *at(k, (A,)))
+                xs_c.append(x)
+                us_c.append(u)
+            xs_c, us_c = torch.stack(xs_c, 2), torch.stack(us_c, 2)
+            costs = total_cost(xs_c, us_c, (A,))
+            costs = torch.where(torch.isnan(costs), torch.inf, costs)
+            best = torch.argmin(costs, dim=0)                   # (B,)
+            best_cost = costs[best, rows]
+        with span("ilqr.accept"):
+            improved = best_cost < cost_now
+            xs = torch.where(improved[:, None, None], xs_c[best, rows], xs)
+            us = torch.where(improved[:, None, None], us_c[best, rows], us)
+            cost_now = torch.where(improved, best_cost, cost_now)
+            reg = torch.where(improved,
+                              torch.clamp(reg * settings.reg_dec,
+                                          min=settings.reg_min),
+                              torch.clamp(reg * settings.reg_inc,
+                                          max=settings.reg_max))
+            trace.append(cost_now)
+            if active():
+                count("ilqr.accepted", improved.sum())
     return ILQRResult(xs=xs, us=us, cost=cost_now,
                       cost_trace=torch.stack(trace, -1))
+
+
+def _backward(fx, fu, lx, lu, lxx, lux, luu, Vx, Vxx, reg_I):
+    """The Riccati sweep from the terminal value (Vx, Vxx) back over the
+    N nodes: the feed-forward terms and feedback gains of every node."""
+    N = fx.shape[1]
+    kffs, Ks = [None] * N, [None] * N
+    for k in reversed(range(N)):
+        fxT = fx[:, k].transpose(-1, -2)
+        fuT = fu[:, k].transpose(-1, -2)
+        Qx = lx[:, k] + _mv(fxT, Vx)
+        Qu = lu[:, k] + _mv(fuT, Vx)
+        Qxx = lxx[:, k] + fxT @ Vxx @ fx[:, k]
+        Quu = luu[:, k] + fuT @ Vxx @ fu[:, k] + reg_I
+        Qux = lux[:, k] + fuT @ Vxx @ fx[:, k]
+        # LU solve without a status check: Quu can transiently lose
+        # PD-ness at early iterates (active-set switches in the
+        # penalty Hessians); a singular Quu gives non-finite gains,
+        # and the line search then rejects every alpha of it
+        sol = torch.linalg.solve_ex(
+            Quu, torch.cat([Qu[..., None], Qux], -1),
+            check_errors=False).result
+        kff, K = -sol[..., 0], -sol[..., 1:]
+        KT = K.transpose(-1, -2)
+        QuxT = Qux.transpose(-1, -2)
+        Vx = Qx + _mv(KT @ Quu, kff) + _mv(KT, Qu) + _mv(QuxT, kff)
+        Vxx = Qxx + KT @ Quu @ K + KT @ Qux + QuxT @ K
+        Vxx = 0.5 * (Vxx + Vxx.transpose(-1, -2))
+        kffs[k], Ks[k] = kff, K
+    return kffs, Ks

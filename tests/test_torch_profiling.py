@@ -4,20 +4,26 @@ Under a CPU-only torch profiler, the heterogeneous fleet of
 tests/test_torch_fleet_hetero.py (B = 6, tile 1, rescue_cap = 2; one
 full cycle and one crippled cycle whose 1-iteration phase solve fails
 every lane, so the rescue re-solves two), a warm "ns" call of the
-full-size batch at B = 4 and ten ticks of the single-robot loop open
-every layer span, properly nested under the span named as its parent;
-the counters equal what the logs imply; and the outputs are bitwise
+full-size batch at B = 4, a cold and a warm DDP MPC solve of four trot
+phases and ten ticks of the single-robot loop open every layer span,
+properly nested under the span named as its parent; the counters equal
+what the logs imply; and the outputs are bitwise
 those of the same calls with no profiler. With no profiler the facility
 does nothing: no counter, no torch operation, no profiler range.
 """
+
+import collections
 
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core import mpc as tmpc
+from qrw_tpu_torch.core import mpc_ddp
+from qrw_tpu_torch.core.mpc_lane import trot_phase_fsteps
 from qrw_tpu_torch.eval.kernel_profile import build_batch
 from qrw_tpu_torch.ops import qp
 from qrw_tpu_torch.sim import fleet as tfl
@@ -65,6 +71,11 @@ FULLSIZE_PARENTS = {
     "qp.precondition": "qp.solve", "qp.factor": "qp.solve",
     "qp.k3": "qp.factor", "qp.k2": "qp.solve", "qp.rho": "qp.solve",
     "sync.mpc_cone": "fullsize.build",
+}
+DDP_PARENTS = {
+    "ddp": None, "ddp.setup": "ddp", "ilqr": "ddp", "ilqr.rollout": "ilqr",
+    "ilqr.derivs": "ilqr", "ilqr.backward": "ilqr", "ilqr.linesearch": "ilqr",
+    "ilqr.accept": "ilqr",
 }
 SINGLE_PARENTS = {"pre": None, "mpc": None, "post": None, "wbc": "post",
                   "physics": None}
@@ -157,7 +168,35 @@ def fullsize():
     return dict(plain=plain, traced=traced, spans=_spans(prof))
 
 
-@pytest.mark.parametrize("path", ["fleet", "fullsize", "single"])
+@pytest.fixture(scope="module")
+def ddp():
+    """A cold and a warm DDP MPC solve of four trot phases (float32), and
+    each solve's cost before its first iteration: a solve whose only
+    step size is infinite rejects every step."""
+    xr = torch.zeros((4, 12, CFG.n_steps + 1))
+    xr[:, 2] = CFG.h_ref
+    xr[:, 6, 1:] = torch.tensor([0.1, 0.3, 0.5, 0.7])[:, None]
+    fs = torch.as_tensor(trot_phase_fsteps(CFG)[[0, 3, 8, 13]])
+
+    def solves(settings=mpc_ddp.DDPSettings(), carried=None):
+        cold = mpc_ddp.solve_mpc_ddp(CFG, xr, fs, None, settings)
+        carried = cold.state if carried is None else carried
+        return [cold, mpc_ddp.solve_mpc_ddp(CFG, xr, fs.roll(1, 1), carried,
+                                            settings)]
+    profiling.reset()
+    plain = solves()
+    start = [r.cost for r in solves(
+        mpc_ddp.DDPSettings(max_iters=1, alphas=(float("inf"),)),
+        plain[0].state)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = solves()
+    counts = profiling.counters()
+    profiling.reset()
+    return dict(plain=plain, traced=traced, spans=_spans(prof),
+                counts=counts, start=start, inputs=(xr, fs))
+
+
+@pytest.mark.parametrize("path", ["fleet", "fullsize", "single", "ddp"])
 def test_every_span_opens_under_its_parent(path, request):
     if path == "single":
         ctl, carry = tro.make_rollout(CFG, device="cpu")
@@ -167,7 +206,8 @@ def test_every_span_opens_under_its_parent(path, request):
         spans, want = _spans(prof), SINGLE_PARENTS
     else:
         spans = request.getfixturevalue(path)["spans"]
-        want = FLEET_PARENTS if path == "fleet" else FULLSIZE_PARENTS
+        want = {"fleet": FLEET_PARENTS, "fullsize": FULLSIZE_PARENTS,
+                "ddp": DDP_PARENTS}[path]
     got = _parents(spans)
     for name, parent in want.items():
         assert got.get(name) == {parent}, (name, got.get(name))
@@ -178,7 +218,7 @@ def test_every_span_opens_under_its_parent(path, request):
     assert got.get("wbc.inputs", {None}) <= {None, "post"}
 
 
-@pytest.mark.parametrize("path", ["fleet", "fullsize"])
+@pytest.mark.parametrize("path", ["fleet", "fullsize", "ddp"])
 def test_outputs_bitwise_equal_with_the_profiler(path, request):
     r = request.getfixturevalue(path)
     got, want = _leaves(r["traced"]), _leaves(r["plain"])
@@ -209,6 +249,40 @@ def test_k1_counters_are_the_tile_maxima(fleet):
                           .amax(dim=-1).flatten() for cl in logs])
     assert fleet["counts"]["mpc.k1_tiles"] == tile_max.numel() == 2 * B
     assert fleet["counts"]["mpc.k1_tile_iters"] == int(tile_max.sum())
+
+
+def test_ilqr_counters_are_problems_and_accepted_steps(ddp):
+    """`ilqr.problems` counts problems x iterations of both solves;
+    `ilqr.accepted` the iterations whose best step lowered a problem's
+    cost: where the accepted cost of the trace falls (a rejected
+    iteration leaves it equal). No host read: no `sync.*` span opens."""
+    c = ddp["counts"]
+    assert c["ilqr.problems"] == 2 * 4 * 10
+    acc = [int((r.cost_trace[:, 0] < c0).sum())
+           + int((r.cost_trace[:, 1:] < r.cost_trace[:, :-1]).sum())
+           for r, c0 in zip(ddp["traced"], ddp["start"])]
+    assert c["ilqr.accepted"] == sum(acc)
+    assert 0 < acc[1] < 40
+    assert not any(m.startswith("sync.") for *_, m in ddp["spans"])
+
+
+def test_a_ddp_solve_makes_no_tensor_from_host_data(ddp):
+    """The DDP MPC's constants (the model's, the step sizes, the identity)
+    come from their caches once made: a solve dispatches no `lift_fresh`,
+    the operation of a tensor made from host data, which on the card is
+    a copy that blocks the host until the stream drains."""
+    ops = collections.Counter()
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops[str(func)] += 1
+            return func(*args, **(kwargs or {}))
+
+    xr, fs = ddp["inputs"]
+    with Ops():
+        mpc_ddp.solve_mpc_ddp(CFG, xr, fs, ddp["plain"][0].state)
+    assert sum(ops.values()) > 1000
+    assert ops["aten.lift_fresh.default"] == 0
 
 
 def test_wbc_rounds_are_those_of_qp_iters(fleet):

@@ -11,8 +11,9 @@ printed with how often it fired and whether it fired inside a
 `utils/profiling.host_read` span (`qrw.sync.<site>`). A site outside
 every such span is a library call that synchronizes on its own (name it)
 or a read to wrap. Also prints the cycle's launches of the K^-1 kernel
-(`ops/qp_pallas.KINV_LAUNCHES`). With --out, also writes the sites as
-JSON to PATH.
+(`ops/qp_pallas.KINV_LAUNCHES`) and how many of the synchronizing calls
+fired inside the DDP solver's span `qrw.ilqr` (the DDP cell's target is
+none). With --out, also writes the sites as JSON to PATH.
 Needs the card.
 """
 
@@ -55,6 +56,24 @@ def track_host_reads():
     return open_sites
 
 
+def track_spans():
+    """A stack of the port's spans open now (with or without a
+    profiler), host reads included."""
+    open_spans = []
+    enter, exit_ = profiling.span.__enter__, profiling.span.__exit__
+
+    def on_enter(self):
+        open_spans.append(self.name)
+        return enter(self)
+
+    def on_exit(self, *exc):
+        open_spans.pop()
+        return exit_(self, *exc)
+    profiling.span.__enter__ = on_enter
+    profiling.span.__exit__ = on_exit
+    return open_spans
+
+
 def site_of(stack):
     """(file:line, code, function) of the innermost frame of the port, else
     of the benchmark, else the innermost frame."""
@@ -78,6 +97,7 @@ def main(argv):
     bench = harness.load_json(ROOT, "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
     names = argv or list(cells)
+    open_spans = track_spans()      # first: host_read's exit calls span's
     open_sites = track_host_reads()
     torch.set_num_threads(1)
     report = {}
@@ -86,6 +106,7 @@ def main(argv):
         cell.warm()
         torch.cuda.synchronize()
         hits = collections.Counter()
+        in_ilqr = collections.Counter()
         inside = {}
         code = {}
 
@@ -95,6 +116,7 @@ def main(argv):
             site, text, fn = site_of(traceback.extract_stack()[:-1])
             key = (site, fn)
             hits[key] += 1
+            in_ilqr[key] += "ilqr" in open_spans
             inside.setdefault(key, set()).add(open_sites[-1] if open_sites
                                               else None)
             code[key] = text
@@ -122,12 +144,15 @@ def main(argv):
         for (site, fn), n in sorted(hits.items(), key=lambda kv: -kv[1]):
             spans = sorted(s or "-" for s in inside[(site, fn)])
             rows.append({"site": site, "function": fn, "code": code[(site, fn)],
-                         "count": n, "host_read": spans})
+                         "count": n, "host_read": spans,
+                         "in_ilqr": in_ilqr[(site, fn)]})
         report[name] = {"cycle_s": wall, "sites": rows,
-                        "kinv_launches": kinv}
+                        "kinv_launches": kinv,
+                        "in_ilqr": sum(in_ilqr.values())}
         print(f"== {name}: one cycle {wall:.3f} s, "
               f"{sum(hits.values())} synchronizing calls at {len(rows)} "
-              f"sites, {kinv} K^-1 launches", flush=True)
+              f"sites, {kinv} K^-1 launches, "
+              f"{sum(in_ilqr.values())} inside qrw.ilqr", flush=True)
         for r in rows:
             mark = "ok " if "-" not in r["host_read"] else "OUT"
             print(f"  {mark} {r['count']:5d}  {r['site']}  {r['function']}: "
