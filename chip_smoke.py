@@ -116,14 +116,22 @@ Phases (any failure ends the run with a non-zero exit):
    E4. S3 with the 18-state Kalman estimator (cfg.kf_enabled), and the
    card's ms a tick.
    E5. The CLI's --estimator-demo --kf for 200 ticks: the metrics.
-   D1-D6, the DDP MPC backends (ops/ilqr, core/mpc_ddp,
-   core/mpc_ddp_planner, eval/compare; plain PyTorch: each phase asserts
-   that it launched none of K1-K3, as in qrw_tpu, where they reach no
-   pl.pallas_call).
+   D0-D6, the DDP MPC backends (ops/ilqr, core/mpc_ddp,
+   core/mpc_ddp_planner, eval/compare; each phase asserts that it
+   launched none of K1-K3, as in qrw_tpu, where they reach no
+   pl.pallas_call; on the card solve_mpc_ddp takes its derivatives from
+   one launch of csrc/ddp_derivs.cu an iteration, the planner keeps
+   torch.func).
+   D0. The DDP derivatives kernel at the DDP cell's shape (B = 32,768 x
+   N = 16 rows): the rows of a warm solve's first iteration, its float32
+   outputs against the plain version's (DERIVS_TOL32 of scale, off the
+   shoulder penalty's kink) and both against float64; the kernel, the
+   plain version and the torch.func route timed, the bound in bytes.
    D1. bench.py::run_ddp_bench through the port: B = 1024 trot problems
    of build_batch(cfg, B, default_rng(11)), one warm-started batched
    DDP solve a cycle, 1 warm-up and 10 timed cycles: solves/s, ms a
-   solve, torch ops a solve (non-view ops: launches), the mean total fz
+   solve, one derivatives kernel launch an iteration, torch ops a solve
+   (non-view ops: launches), the mean total fz
    of the last cycle's first node within 2 N of qrw_tpu's value for the
    cell (DDP_FZ_REF), all finite; a B = 8 slice cold and warm on the
    card and on the CPU, float64 and float32 (DDP_TOL).
@@ -242,6 +250,13 @@ HETERO_CONV_BAR = 0.85
 BATCH_B = 256                   # S2: the CLI's --batch at full width
 BATCH_TICKS = 300               # S2: 30 MPC cycles
 S3_TICKS = 20                   # S3: card against CPU
+DERIVS_B = 32768                # D0: the DDP cell's batch (B N rows)
+# D0: the derivatives kernel's float32 outputs against the plain
+# version's, as a share of each output's scale, on the rows farther than
+# DERIVS_KINK_M from the shoulder penalty's kink (tests/
+# test_torch_ddp_derivs_card.py states the bar)
+DERIVS_TOL32 = 4e-6
+DERIVS_KINK_M = 1e-5
 DDP_B = 1024                    # D1: bench.py::run_ddp_bench's batch
 DDP_CYCLES = 10                 # D1: its warm cycles (bench.py:499)
 DDP_SLICE_B = 8                 # D1: card against CPU
@@ -1848,6 +1863,99 @@ def check_ddp_slice(cfg, xr_np, fs_np, device):
     return worst, over
 
 
+def derivs_work(B, N, itemsize=4):
+    """Operations and bytes of one launch of the DDP derivatives kernel on
+    B problems of N nodes: ~900 flop a node row (the inertia and its
+    inverse, the four feet's 3 x 3 blocks, the shoulder penalty's 4 x 4
+    Hessian, the cone); a node row reads 53 values and writes 600, a
+    terminal row reads 40 and writes 156."""
+    R = B * N
+    return 900 * R, itemsize * (R * (53 + 600) + B * (40 + 156))
+
+
+def check_ddp_derivs_kernel(cfg, device):
+    """D0: the DDP derivatives kernel (csrc/ddp_derivs.cu) at the DDP
+    cell's shape (B = DERIVS_B trot problems of build_batch, N = 16): the
+    rows of the first iteration of a warm solve (a cold solve first, its
+    solution carried). Its float32 outputs against the plain version's,
+    held to DERIVS_TOL32 of scale off the shoulder penalty's kink, and
+    both against the float64 plain version; one launch. Times the
+    kernel, the plain version and the torch.func route it replaced.
+    Returns the kernels JSON entry's numbers."""
+    from torch.func import jacfwd, vmap
+
+    from qrw_tpu_torch.core import mpc_ddp
+    from qrw_tpu_torch.eval.kernel_profile import build_batch
+    from qrw_tpu_torch.ops import ilqr
+
+    B, N = DERIVS_B, cfg.n_steps
+    xr_np, fs_np = build_batch(cfg, B, np.random.default_rng(13))
+    xr = torch.as_tensor(xr_np, device=device)
+    fs = torch.as_tensor(fs_np, device=device)
+    settings = mpc_ddp.DDPSettings()
+    state = mpc_ddp.solve_mpc_ddp(cfg, xr, fs, None, settings).state
+    args = mpc_ddp._setup(cfg, xr, fs, state, settings, None, None)
+    X = state.xs[:, :-1].reshape(B * N, 12)
+    U = args["us0"].reshape(B * N, 12)
+    xT = state.xs[:, -1]
+    flat = [a.reshape((B * N,) + a.shape[2:]) for a in args["node_args"]]
+    term = args["term_args"]
+    launches = mpc_ddp.DERIVS_LAUNCHES
+    got = args["derivs"](X, U, flat, xT, term)
+    torch.cuda.synchronize()
+    assert mpc_ddp.DERIVS_LAUNCHES == launches + 1
+    c32 = mpc_ddp.make_consts(cfg, torch.float32, device)
+    c64 = mpc_ddp.make_consts(cfg, torch.float64, device)
+    plain = lambda: mpc_ddp._srb_derivs_plain(  # noqa: E731
+        cfg, settings, c32, X, U, flat, xT, term)
+    p32 = plain()
+    p64 = mpc_ddp._srb_derivs_plain(
+        cfg, settings, c64, X.double(), U.double(),
+        [a.double() for a in flat], xT.double(), [a.double() for a in term])
+    far = (mpc_ddp.shoulder_kink_margin(X, flat[0], flat[1]) > DERIVS_KINK_M,
+           mpc_ddp.shoulder_kink_margin(xT, term[1], term[2])
+           > DERIVS_KINK_M)
+    names = ("fx", "fu", "lx", "lu", "lxx", "lux", "luu", "Vx", "Vxx")
+    errs = {}
+    for name, g, p, w in zip(names, got, p32, p64):
+        scale = max(1.0, float(w.abs().max()))
+        rows = far[1] if name.startswith("V") else far[0]
+        e = (g.double() - p.double()).abs().flatten(1).amax(1) / scale
+        errs[name] = (float(e[rows].max()), float(e.max()),
+                      float((g.double() - w).abs().max()) / scale,
+                      float((p.double() - w).abs().max()) / scale)
+        assert errs[name][0] <= DERIVS_TOL32, (name, errs[name])
+    near = (int((~far[0]).sum()), int((~far[1]).sum()))
+    del p32, p64, got
+    fxu_fn = vmap(jacfwd(args["step"], argnums=(0, 1)))
+    l_fn = vmap(ilqr._second_order(args["cost"]))
+    lT_fn = vmap(ilqr._terminal_second_order(args["cost_T"]))
+
+    def torch_func():
+        return (fxu_fn(X, U, *flat), l_fn(X, U, *flat), lT_fn(xT, *term))
+
+    k_ms = time_ms(lambda: args["derivs"](X, U, flat, xT, term))
+    p_ms = time_ms(plain)
+    f_ms = time_ms(torch_func, windows=3)
+    b_ms, b_by = bound(*derivs_work(B, N))
+    blocks = mpc_ddp.derivs_blocks_per_sm(4)
+    log(f"D0 DDP derivatives kernel, B = {B} x N = {N} rows (+ {B} "
+        f"terminal), float32: {blocks} blocks an SM; error of scale, kernel "
+        f"vs plain off the shoulder kink / on all rows ({near[0]} node and "
+        f"{near[1]} terminal rows within {DERIVS_KINK_M} m of it), kernel "
+        "and plain vs float64: " + ", ".join(
+            f"{n} {a:.2e}/{b:.2e}, {c:.2e}/{d:.2e}"
+            for n, (a, b, c, d) in errs.items())
+        + f"; {k_ms[0]:.4f} ms [{k_ms[1]:.4f}-{k_ms[2]:.4f}] (bound "
+        f"{b_ms:.4f} ms, {b_by}: {100 * b_ms / k_ms[0]:.1f}%), plain "
+        f"{p_ms[0]:.3f} ms, torch.func {f_ms[0]:.3f} ms")
+    return {"B": B, "N": N, "ms": k_ms[0], "ms_min": k_ms[1],
+            "ms_max": k_ms[2], "plain_ms": p_ms[0], "library_ms": f_ms[0],
+            "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / k_ms[0],
+            "blocks_per_sm": blocks, "near_kink_rows": near,
+            "rel_err": {n: e[0] for n, e in errs.items()}}
+
+
 def run_ddp_batch(cfg, device):
     """D1: bench.py::run_ddp_bench through the port: B = 1024 trot
     problems of build_batch(cfg, B, default_rng(11)) (the port's copy in
@@ -1871,12 +1979,15 @@ def run_ddp_batch(cfg, device):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     t0 = time.perf_counter()
+    derivs0 = mpc_ddp.DERIVS_LAUNCHES
     for _ in range(DDP_CYCLES):
         res = mpc_ddp.solve_mpc_ddp(cfg, xr, fs, st)
         st = res.state
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     assert_no_kernel("D1 batched DDP")
+    derivs = mpc_ddp.DERIVS_LAUNCHES - derivs0
+    assert derivs == DDP_CYCLES * mpc_ddp.DDPSettings().max_iters, derivs
     ops = count_ops(lambda: mpc_ddp.solve_mpc_ddp(cfg, xr, fs, st))
     ops = (sum(ops.values()), launches(ops))
     prof_wall, prof_dev = device_busy(
@@ -1893,7 +2004,8 @@ def run_ddp_batch(cfg, device):
         f"{DDP_CYCLES} warm cycles in {wall:.3f} s: "
         f"{DDP_B * DDP_CYCLES / wall:.1f} solves/s, {ms:.3f} ms a batched "
         f"solve ({1e3 * ms / DDP_B:.3f} us a problem; warm-up cycle "
-        f"{first:.3f} s); {ops[0]} torch ops a solve, {ops[1]} not views "
+        f"{first:.3f} s); {derivs} derivatives kernel launches; "
+        f"{ops[0]} torch ops a solve, {ops[1]} not views "
         f"(launches); device time of one solve (torch.profiler) {busy}; "
         f"mean total fz of the first node {fz_mean:.4f} N "
         f"(qrw_tpu {DDP_FZ_REF}; mg {cfg.mass * cfg.gravity:.4f}); finite "
@@ -1998,9 +2110,11 @@ def run_compare(cfg, device):
 
 
 def run_ddp_phases(cfg, device, clock):
-    """D1-D6 in order; each asserts that it launched none of K1-K3."""
+    """D0-D6 in order; each asserts that it launched none of K1-K3."""
     from qrw_tpu_torch.core import mpc_ddp, mpc_ddp_planner
 
+    d0 = check_ddp_derivs_kernel(cfg, device)
+    clock.lap("D0")
     d1 = run_ddp_batch(cfg, device)
     clock.lap("D1")
     d2 = run_ddp_cli(cfg, device)
@@ -2022,7 +2136,7 @@ def run_ddp_phases(cfg, device, clock):
     clock.lap("D5")
     d6 = run_compare(cfg, device)
     clock.lap("D6")
-    return d1, d2, d3, d4, d6
+    return d0, d1, d2, d3, d4, d6
 
 
 # ----------------------------------------------------------------------
@@ -3192,7 +3306,7 @@ def main() -> int:
     check_card_vs_cpu(cfg.replace(kf_enabled=True), device, label="E4")
     run_estimator_demo(cfg, device)
     clock.lap("E4, E5")
-    run_ddp_phases(cfg, device, clock)
+    d0 = run_ddp_phases(cfg, device, clock)[0]
     h7_logs, _ = run_host_phases(cfg, device, clock)
     run_util_phases(cfg, device, clock, h7_logs)
     del h7_logs
@@ -3297,7 +3411,12 @@ def main() -> int:
         "source": "qrw_tpu_torch/csrc/qp_kinv.cu",
         "replaces": None, "stands_for": "qrw_tpu/ops/qp_pallas.py:254",
         "launches": kinv_launches, "path": "rescue (phase 4)",
-        "shapes": kinv}]}))
+        "shapes": kinv}, {
+        "name": "ddp_derivs", "route": "cuda",
+        "source": "qrw_tpu_torch/csrc/ddp_derivs.cu",
+        "replaces": None, "stands_for": "qrw_tpu/ops/ilqr.py (jacfwd, "
+        "jax.hessian)", "path": "core/mpc_ddp.solve_mpc_ddp (D0, D1)",
+        **d0}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,10 +24,21 @@ Every penalty is branch-free (`torch.maximum(r, 0)`, whose derivative
 at r = 0 is 1/2 as JAX's `jnp.maximum`), so its exact derivatives come
 from `torch.func`. A solve takes leading batch axes: B robots are one
 iLQR call of B problems.
+
+On CUDA tensors the iLQR's derivatives (the dynamics' Jacobians, the
+running costs' gradients and Hessians on all B N node rows, the
+terminal cost's on the B terminal states) come from one launch of the
+hand-written kernel qrw_tpu_torch/csrc/ddp_derivs.cu an iteration
+(`_srb_derivs`, counter DERIVS_LAUNCHES), which writes them in the
+dense layouts `ilqr._backward` reads; `_srb_derivs_plain` is the same
+arithmetic in plain PyTorch. On the CPU the solve keeps `torch.func`,
+the JAX package's `jax.hessian` / `jacfwd` route.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -37,7 +48,7 @@ from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.mpc import gait_from_fsteps
 from qrw_tpu_torch.ops import ilqr
 from qrw_tpu_torch.ops.rotations import rot_z, skew
-from qrw_tpu_torch.utils.profiling import span, spanned
+from qrw_tpu_torch.utils.profiling import count, span, spanned
 
 # Reference weight derivation (MPC_crocoddyl.py:44-66)
 STATE_WEIGHTS = np.sqrt(np.array(
@@ -51,6 +62,12 @@ SHOULDER_HLIM = 0.27
 MIN_FZ = 0.2
 SHOULDERS_XY = np.array([[0.1946, 0.1946, -0.1946, -0.1946],
                          [0.14695, -0.14695, 0.14695, -0.14695]])
+SHOULDER_EPS = 1e-12         # inside the shoulder distance's square root
+
+# Launches of the derivatives kernel (csrc/ddp_derivs.cu), one an iLQR
+# iteration of a solve on CUDA tensors. chip_smoke.py and
+# tests/torch_sync_sites.py read it.
+DERIVS_LAUNCHES = 0
 
 
 class DDPSettings(NamedTuple):
@@ -191,7 +208,7 @@ def _stage_cost(cfg: Config, x, u, xref_k, feet_k, gait_k, k: Consts,
     p_sh = x[..., 0:2, None] + R2 @ k.sh                     # (..., 2, 4)
     feet = feet_k.reshape(feet_k.shape[:-1] + (4, 3))
     d = torch.sqrt(((p_sh.transpose(-1, -2) - feet[..., 0:2]) ** 2).sum(-1)
-                   + x[..., 2:3] ** 2 + 1e-12)
+                   + x[..., 2:3] ** 2 + SHOULDER_EPS)
     viol_sh = relu(d - SHOULDER_HLIM, k.zero) * gait_k
     c = c + 0.5 * SHOULDER_WEIGHT * (viol_sh ** 2).sum(-1)
     if terminal:
@@ -299,7 +316,288 @@ def _setup(cfg: Config, xref, fsteps, state, settings: DDPSettings,
         return _stage_cost(cfg, x, None, xref_T, feet_T, gait_T,
                            terminal=True, k=consts)
 
+    term_args = (xref_n[:, -1], feet[:, -1], gait[:, -1])
+    derivs = None
+    if dev.type == "cuda":
+        # the kernel reads its rows contiguous: made so once a solve
+        term_args = tuple(a.contiguous() for a in term_args)
+        derivs = functools.partial(_srb_derivs, derivs_params(cfg),
+                                   derivs_flags(settings), consts.zero)
     return dict(step=step, cost=cost, cost_T=cost_T, x0=x0, us0=us0,
-                node_args=(feet, gait, xref_n, dt),
-                term_args=(xref_n[:, -1], feet[:, -1], gait[:, -1]),
-                project_u=lambda u, k: u * umask[:, k])
+                node_args=(feet, gait, xref_n, dt), term_args=term_args,
+                project_u=lambda u, k: u * umask[:, k], derivs=derivs)
+
+
+# ----------------------------------------------------------------------
+# The SRB model's exact derivatives on the iLQR's rows: the kernel and
+# its plain version
+# ----------------------------------------------------------------------
+
+def _tie_weight(r):
+    """The derivative of torch.maximum(r, 0) in r: 1 above 0, 1/2 at the
+    tie, 0 below (forward and reverse mode alike)."""
+    return (r > 0).to(r.dtype) + 0.5 * (r == 0).to(r.dtype)
+
+
+def _shoulder_offsets(x, feet, sx, sy):
+    """The shoulder penalty's geometry on rows x (R, 12), feet (R, 12):
+    the shoulders' offsets (ax, ay) rotated by the iterate's yaw, each
+    foot's (ex, ey, ez) from its shoulder, and their distance d; each
+    (R, 4)."""
+    R = x.shape[0]
+    cs, sn = torch.cos(x[:, 5:6]), torch.sin(x[:, 5:6])
+    ax, ay = cs * sx - sn * sy, sn * sx + cs * sy
+    f4 = feet.reshape(R, 4, 3)
+    ex = x[:, 0:1] + ax - f4[..., 0]
+    ey = x[:, 1:2] + ay - f4[..., 1]
+    ez = x[:, 2:3].expand(R, 4)
+    d = torch.sqrt(ex * ex + ey * ey + ez * ez + SHOULDER_EPS)
+    return ax, ay, ex, ey, ez, d
+
+
+def _state_cost_derivs(x, xref, feet, gait, c: Consts):
+    """Gradient (R, 12) and Hessian (R, 12, 12) of `_stage_cost`'s state
+    terms: the weighted tracking error and the shoulder penalty, whose
+    Hessian in (x, y, z, yaw) keeps the distance's own second
+    derivative."""
+    R = x.shape[0]
+    w2 = c.w * c.w
+    lx = w2 * (x - xref)
+    lxx = torch.diag_embed(w2.expand(R, 12))
+    ax, ay, ex, ey, ez, d = _shoulder_offsets(x, feet, c.sh[0], c.sh[1])
+    r = d - SHOULDER_HLIM
+    wgt = SHOULDER_WEIGHT * gait * gait
+    gd = torch.stack([ex, ey, ez, ey * ax - ex * ay], -1) / d[..., None]
+    zero, one = torch.zeros_like(ax), torch.ones_like(ax)
+    # J'J + sum_k e_k Hess(e_k), J = d(ex, ey, ez)/d(x, y, z, yaw)
+    h0 = torch.stack([
+        torch.stack([one, zero, zero, -ay], -1),
+        torch.stack([zero, one, zero, ax], -1),
+        torch.stack([zero, zero, one, zero], -1),
+        torch.stack([-ay, ax, zero, ax * ax + ay * ay - ex * ax - ey * ay],
+                    -1)], -2)                               # (R, 4, 4, 4)
+    gg = gd[..., :, None] * gd[..., None, :]
+    hd = (h0 - gg) / d[..., None, None]                     # Hess d
+    rl = torch.clamp(r, min=0.0)
+    m = _tie_weight(r)
+    lq = (wgt * rl)[..., None] * gd
+    hq = wgt[..., None, None] * ((m * m)[..., None, None] * gg
+                                 + rl[..., None, None] * hd)
+    lq, hq = lq.sum(1), hq.sum(1)                           # (x, y, z, yaw)
+    lx[:, 0:3] += lq[:, 0:3]
+    lx[:, 5] += lq[:, 3]
+    lxx[:, 0:3, 0:3] += hq[:, 0:3, 0:3]
+    lxx[:, 0:3, 5] += hq[:, 0:3, 3]
+    lxx[:, 5, 0:3] += hq[:, 3, 0:3]
+    lxx[:, 5, 5] += hq[:, 3, 3]
+    return lx, lxx
+
+
+def shoulder_kink_margin(x, feet, gait):
+    """(R,) the least |d - SHOULDER_HLIM| over each row's stance feet, in
+    float64 (inf without one): how far a row of x (R, 12), feet (R, 12),
+    gait (R, 4) lies from the shoulder penalty's kink, where its Hessian
+    jumps by the weight times grad d grad d'. A row within float32
+    rounding of it may take either side in another order of roundings;
+    the kernel's checks on the card excuse such rows."""
+    sx, sy = torch.as_tensor(SHOULDERS_XY, device=x.device)
+    d = _shoulder_offsets(x.double(), feet.double(), sx, sy)[-1]
+    gap = (d - SHOULDER_HLIM).abs()
+    return torch.where(gait != 0, gap, torch.inf).amin(-1)
+
+
+def _srb_derivs_plain(cfg: Config, settings: DDPSettings, c: Consts, X, U,
+                      flat, xT, term_args):
+    """Plain PyTorch version of the derivatives kernel, `ilqr.solve`'s
+    `derivs` for the SRB model of `_setup`: what `torch.func` gives on
+    its step, cost and cost_T, written out analytically.
+
+    X, U (R, 12) the node rows, flat = (feet (R, 12), gait (R, 4),
+    xref (R, 12), dt (R,)), xT (B, 12) the terminal states, term_args =
+    (xref (B, 12), feet (B, 12), gait (B, 4)). Returns fx, fu (R, 12,
+    12), lx, lu (R, 12), lxx, lux, luu (R, 12, 12), Vx (B, 12), Vxx
+    (B, 12, 12); lux is 0 (no running cost term couples x and u) and
+    comes as a broadcast of c.zero.
+
+    The dynamics: with a = (f_tot / m - g, I^-1 tau), d(I^-1 tau)/dp =
+    I^-1 skew(f_tot), d(I^-1 tau)/du_i = g_i I^-1 skew(lever_i),
+    d(f_tot / m)/du_i = g_i / m I3 and, for the nonlinear model (the
+    iterate's yaw rotates I), d(I^-1 tau)/dyaw = (S I^-1 - I^-1 S) tau,
+    S = skew(e_z); then v+ = v + dt a and p+ = p + dt v (explicit) or
+    p + dt v+ (implicit). The costs: each max(r, 0)^2 / 2 term weighs
+    grad r grad r' by the square of `_tie_weight` (1/4 at r = 0) and
+    adds max(r, 0) times the Hessian of r, nonzero for the shoulder
+    distance alone."""
+    feet, gait, xref, dt = flat
+    R = X.shape[0]
+    # dynamics
+    yaw = X[:, 5] if settings.nonlinear else xref[:, 5]
+    Rz = rot_z(yaw)
+    I_inv = torch.linalg.inv_ex(Rz @ c.gI @ Rz.transpose(-1, -2),
+                                check_errors=False).inverse
+    lever = feet.reshape(R, 4, 3) - (X[:, 0:3] + c.com_off)[:, None]
+    u4 = U.reshape(R, 4, 3) * gait[..., None]
+    dacc = X.new_zeros(R, 6, 24)                # d a / d(x, u)
+    dacc[:, 3:6, 0:3] = I_inv @ skew(u4.sum(1))
+    if settings.nonlinear:
+        tau = torch.linalg.cross(lever, u4).sum(1)
+        S = skew(c.ez)
+        dacc[:, 3:6, 5] = ((S @ I_inv - I_inv @ S) @ tau[..., None])[..., 0]
+    eye3 = torch.eye(3, dtype=X.dtype, device=X.device)
+    for i in range(4):
+        gi = gait[:, i, None, None]
+        dacc[:, 0:3, 12 + 3 * i:15 + 3 * i] = gi / cfg.mass * eye3
+        dacc[:, 3:6, 12 + 3 * i:15 + 3 * i] = gi * (I_inv @ skew(lever[:, i]))
+    dt3 = dt[:, None, None]
+    J = X.new_zeros(R, 12, 24)                  # d x+ / d(x, u)
+    J[:, :, 0:12] = torch.eye(12, dtype=X.dtype, device=X.device)
+    J[:, 0:6, 6:12] += dt3 * torch.eye(6, dtype=X.dtype, device=X.device)
+    J[:, 6:12] += dt3 * dacc
+    if settings.implicit_integration:
+        J[:, 0:6] += dt3 * dt3 * dacc
+    # running costs
+    lx, lxx = _state_cost_derivs(X, xref, feet, gait, c)
+    g3 = repeat_flags(gait, 3)
+    u_reg = U - _u_ref(cfg, gait, c.ez) if settings.relative_forces else U
+    lu = FORCE_WEIGHT ** 2 * g3 * g3 * u_reg
+    luu = torch.diag_embed(FORCE_WEIGHT ** 2 * g3 * g3)
+    mu_i = cfg.mu / np.sqrt(2.0)
+    u4 = U.reshape(R, 4, 3)
+    fx_, fy_, fz_ = u4[..., 0], u4[..., 1], u4[..., 2]
+    r = torch.stack([fx_ - mu_i * fz_, -fx_ - mu_i * fz_,
+                     fy_ - mu_i * fz_, -fy_ - mu_i * fz_,
+                     MIN_FZ - fz_, fz_ - cfg.fz_max], -1)   # (R, 4, 6)
+    rl, q = torch.clamp(r, min=0.0), _tie_weight(r) ** 2
+    wc = FRICTION_WEIGHT * gait * gait                      # (R, 4)
+    lu = lu + (wc[..., None] * torch.stack([
+        rl[..., 0] - rl[..., 1], rl[..., 2] - rl[..., 3],
+        -mu_i * rl[..., 0:4].sum(-1) - rl[..., 4] + rl[..., 5]], -1)
+    ).reshape(R, 12)
+    xz = wc * mu_i * (q[..., 1] - q[..., 0])
+    yz = wc * mu_i * (q[..., 3] - q[..., 2])
+    for i in range(4):
+        j = 3 * i
+        luu[:, j, j] += wc[:, i] * (q[:, i, 0] + q[:, i, 1])
+        luu[:, j + 1, j + 1] += wc[:, i] * (q[:, i, 2] + q[:, i, 3])
+        luu[:, j + 2, j + 2] += wc[:, i] * (
+            mu_i ** 2 * q[:, i, 0:4].sum(-1) + q[:, i, 4] + q[:, i, 5])
+        luu[:, j, j + 2] += xz[:, i]
+        luu[:, j + 2, j] += xz[:, i]
+        luu[:, j + 1, j + 2] += yz[:, i]
+        luu[:, j + 2, j + 1] += yz[:, i]
+    Vx, Vxx = _state_cost_derivs(xT, *term_args, c)
+    return (J[:, :, 0:12], J[:, :, 12:24], lx, lu, lxx,
+            c.zero.expand(R, 12, 12), luu, Vx, Vxx)
+
+
+N_PARAMS = 41        # the doubles of csrc/ddp_derivs.cu's `Params`
+
+
+def derivs_params(cfg: Config, state_weights=STATE_WEIGHTS):
+    """The kernel's model constants as a host array of N_PARAMS doubles
+    in the order of its `Params` (mass, gravity, CoM z offset, inertia
+    (9), state weights (12), shoulders' x (4) and y (4), inner-cone mu,
+    the least fz, fz_max, the shoulder limit, the shoulder, force^2 and
+    friction weights, the shoulder distance's epsilon, m g); the kernel
+    rounds them to its type. Nothing is copied to the card."""
+    vals = np.concatenate([
+        [cfg.mass, cfg.gravity, cfg.offset_com_z], np.asarray(cfg.gI),
+        np.asarray(state_weights), SHOULDERS_XY[0], SHOULDERS_XY[1],
+        [cfg.mu / np.sqrt(2.0), MIN_FZ, cfg.fz_max, SHOULDER_HLIM,
+         SHOULDER_WEIGHT, FORCE_WEIGHT ** 2, FRICTION_WEIGHT,
+         SHOULDER_EPS, cfg.mass * cfg.gravity]]).astype(np.float64)
+    assert vals.shape == (N_PARAMS,)
+    return (ctypes.c_double * N_PARAMS)(*vals)
+
+
+def derivs_flags(settings: DDPSettings) -> int:
+    """The model toggles as the kernel's bit mask."""
+    return (int(settings.nonlinear) | int(settings.implicit_integration) << 1
+            | int(settings.relative_forces) << 2)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _clib():
+    from qrw_tpu_torch import kernels
+    lib = kernels.library()
+    if lib.qrw_ddp_derivs.argtypes is None:
+        lib.qrw_ddp_derivs.argtypes = ([_I, _P, _I] + [_P] * 18 + [_I] * 3
+                                       + [_P])
+        lib.qrw_ddp_derivs.restype = _I
+        lib.qrw_ddp_derivs_blocks.argtypes = [_I, _P]
+        lib.qrw_ddp_derivs_blocks.restype = _I
+    return lib
+
+
+def _row_check(name, t, shape, like):
+    if t.dtype != like.dtype or t.device != like.device:
+        raise ValueError(f"ddp derivs kernel: {name} is {t.dtype} on "
+                         f"{t.device}, expected {like.dtype} on "
+                         f"{like.device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"ddp derivs kernel: {name} has shape "
+                         f"{tuple(t.shape)}, expected {shape}")
+
+
+def _srb_derivs(params, flags: int, zero, X, U, flat, xT, term_args):
+    """`ilqr.solve`'s `derivs` on CUDA tensors: one launch of the
+    derivatives kernel (csrc/ddp_derivs.cu) over the R = B N node rows
+    and the B terminal rows, on the current stream; nothing is read back.
+    Same arguments and results as `_srb_derivs_plain` (params:
+    `derivs_params`, flags: `derivs_flags`, zero: a 0-d zero on the
+    device, broadcast as lux). float32 or float64. Counts the rows
+    ("ddp.derivs_rows", R + B, a host number) while a profiler runs."""
+    global DERIVS_LAUNCHES
+    if X.device.type != "cuda":
+        raise ValueError(f"ddp derivs kernel: X on {X.device}, not CUDA")
+    if X.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"ddp derivs kernel: {X.dtype}, expected float32 "
+                         f"or float64")
+    R, B = X.shape[0], xT.shape[0]
+    if R < 1 or B < 1 or R % B or R >= 2 ** 31:
+        raise ValueError(f"ddp derivs kernel: {R} node rows over {B} "
+                         f"problems")
+    # each a no-op where the tensor is contiguous already, as in a solve
+    X, U = X.contiguous(), U.contiguous()
+    feet, gait, xref, dt = (a.contiguous() for a in flat)
+    xrefT, feetT, gaitT = (a.contiguous() for a in term_args)
+    for name, t, shape in (
+            ("X", X, (R, 12)), ("U", U, (R, 12)), ("feet", feet, (R, 12)),
+            ("gait", gait, (R, 4)), ("xref", xref, (R, 12)), ("dt", dt, (R,)),
+            ("xT", xT, (B, 12)), ("xref_T", xrefT, (B, 12)),
+            ("feet_T", feetT, (B, 12)), ("gait_T", gaitT, (B, 4))):
+        _row_check(name, t, shape, X)
+    if xT.stride(1) != 1:
+        raise ValueError("ddp derivs kernel: xT's rows are not contiguous")
+    fx, fu, lxx, luu, Vxx = (X.new_empty(r, 12, 12)
+                             for r in (R, R, R, R, B))
+    lx, lu, Vx = (X.new_empty(r, 12) for r in (R, R, B))
+    err = _clib().qrw_ddp_derivs(
+        X.element_size(), params, flags,
+        X.data_ptr(), U.data_ptr(), feet.data_ptr(), gait.data_ptr(),
+        xref.data_ptr(), dt.data_ptr(), xT.data_ptr(), xrefT.data_ptr(),
+        feetT.data_ptr(), gaitT.data_ptr(),
+        fx.data_ptr(), fu.data_ptr(), lx.data_ptr(), lu.data_ptr(),
+        lxx.data_ptr(), luu.data_ptr(), Vx.data_ptr(), Vxx.data_ptr(),
+        R, B, xT.stride(0),
+        torch.cuda.current_stream(X.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ddp derivs kernel launch failed: CUDA error "
+                           f"{err}")
+    DERIVS_LAUNCHES += 1
+    count("ddp.derivs_rows", R + B)
+    return fx, fu, lx, lu, lxx, zero.expand(R, 12, 12), luu, Vx, Vxx
+
+
+def derivs_blocks_per_sm(itemsize: int) -> int:
+    """Blocks of the derivatives kernel an SM holds at once for elements
+    of `itemsize` bytes (4: float32, 8: float64)."""
+    out = ctypes.c_int(0)
+    err = _clib().qrw_ddp_derivs_blocks(int(itemsize), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"ddp derivs kernel occupancy query: CUDA "
+                           f"error {err}")
+    return out.value

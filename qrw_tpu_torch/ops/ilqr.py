@@ -4,18 +4,19 @@ Port of qrw_tpu/ops/ilqr.py. The reference's DDP backends call
 `crocoddyl.SolverDDP.solve(x_init, u_init, max_iter)` over a list of
 per-node action models; here the solver is one function over fixed
 shapes with B problems along a leading axis (qrw_tpu `jax.vmap`s its
-per-problem solve): exact per-node derivatives through `torch.func`,
-the backward Riccati sweep as a reversed loop over the N nodes, the
-line search over the crocoddyl alpha schedule (2^-k) as one more batch
-axis, and a Levenberg regularization adapted per problem, as
-crocoddyl's increase/decreaseRegularization. Each problem keeps its own
-accept/reject decision. The solve runs a fixed `max_iters` and reads
-nothing back to the host: its constants (the step sizes, the identity)
-are made once per (schedule, dtype, device) and kept on the device.
+per-problem solve): exact per-node derivatives through `torch.func`
+(or a caller's `derivs`), the backward Riccati sweep as a reversed
+loop over the N nodes, the line search over the crocoddyl alpha
+schedule (2^-k) as one more batch axis, and a Levenberg regularization
+adapted per problem, as crocoddyl's increase/decreaseRegularization.
+Each problem keeps its own accept/reject decision. The solve runs a
+fixed `max_iters` and reads nothing back to the host: its constants
+(the step sizes, the identity) are made once per (schedule, dtype,
+device) and kept on the device.
 
 Under a profiler the solve opens the span `qrw.ilqr`, in it
 `qrw.ilqr.rollout` and, each iteration, `qrw.ilqr.derivs` (the
-`torch.func` derivatives), `qrw.ilqr.backward` (the Riccati sweep),
+derivatives), `qrw.ilqr.backward` (the Riccati sweep),
 `qrw.ilqr.linesearch` and `qrw.ilqr.accept`; it counts `ilqr.problems`
 (problems x iterations) and `ilqr.accepted` (the iterations a problem
 accepted, summed on the card).
@@ -28,9 +29,18 @@ that they broadcast over leading axes (they also run under
     cost_T(x, *term_args)  -> scalar   (terminal cost)
 where node_args are tensors (B, N, ...) read at the node (the JAX
 package's closures over the node index k), term_args tensors (B, ...),
-and an optional project_u(u, k) applied to every candidate control of
+an optional project_u(u, k) applied to every candidate control of
 the line search at node k (contact gating: swing-foot forces stay
-exactly zero).
+exactly zero), and an optional `derivs` that computes the derivatives
+in place of `torch.func`:
+    derivs(X, U, flat_node_args, xT, term_args)
+        -> (fx, fu, lx, lu, lxx, lux, luu, Vx, Vxx)
+on the B N node rows X, U (B N, n | m) with the node args flattened the
+same way, and the terminal states xT (B, n); the node rows' outputs
+come flat ((B N, n, n) ...), Vx (B, n) and Vxx (B, n, n) are the
+terminal cost's gradient and Hessian. It must give what `torch.func`
+gives on step, cost and cost_T (core/mpc_ddp passes the SRB model's
+hand-written kernel on CUDA tensors).
 """
 
 from __future__ import annotations
@@ -102,7 +112,8 @@ def solve(step: Callable, cost: Callable, cost_T: Callable,
           node_args: Sequence[torch.Tensor] = (),
           term_args: Sequence[torch.Tensor] = (),
           settings: ILQRSettings = ILQRSettings(),
-          project_u: Optional[Callable] = None) -> ILQRResult:
+          project_u: Optional[Callable] = None,
+          derivs: Optional[Callable] = None) -> ILQRResult:
     """Run iLQR from the warm start us0. x0: (B, n), us0: (B, N, m)."""
     B, N, m = us0.shape
     n = x0.shape[-1]
@@ -148,13 +159,17 @@ def solve(step: Callable, cost: Callable, cost_T: Callable,
         with span("ilqr.derivs"):
             X = xs[:, :-1].reshape(B * N, n)
             U = us.reshape(B * N, m)
-            fx, fu = fxu_fn(X, U, *flat)
-            ((lxx, _), (lux, luu)), (lx, lu) = l_fn(X, U, *flat)
+            if derivs is None:
+                fx, fu = fxu_fn(X, U, *flat)
+                ((lxx, _), (lux, luu)), (lx, lu) = l_fn(X, U, *flat)
+                Vxx, Vx = lT_fn(xs[:, -1], *term_args)
+            else:
+                fx, fu, lx, lu, lxx, lux, luu, Vx, Vxx = derivs(
+                    X, U, flat, xs[:, -1], term_args)
             fx, fu = fx.reshape(B, N, n, n), fu.reshape(B, N, n, m)
             lx, lu = lx.reshape(B, N, n), lu.reshape(B, N, m)
             lxx = lxx.reshape(B, N, n, n)
             luu, lux = luu.reshape(B, N, m, m), lux.reshape(B, N, m, n)
-            Vxx, Vx = lT_fn(xs[:, -1], *term_args)
         with span("ilqr.backward"):
             kffs, Ks = _backward(fx, fu, lx, lu, lxx, lux, luu, Vx, Vxx,
                                  reg[:, None, None] * eye)

@@ -11,9 +11,11 @@ printed with how often it fired and whether it fired inside a
 `utils/profiling.host_read` span (`qrw.sync.<site>`). A site outside
 every such span is a library call that synchronizes on its own (name it)
 or a read to wrap. Also prints the cycle's launches of the K^-1 kernel
-(`ops/qp_pallas.KINV_LAUNCHES`) and how many of the synchronizing calls
-fired inside the DDP solver's span `qrw.ilqr` (the DDP cell's target is
-none). With --out, also writes the sites as JSON to PATH.
+(`ops/qp_pallas.KINV_LAUNCHES`) and of the DDP derivatives kernel
+(`core/mpc_ddp.DERIVS_LAUNCHES`: one an iLQR iteration) and how many
+of the synchronizing calls fired inside the DDP solver's span
+`qrw.ilqr` (the DDP cell's target is none). With --out, also writes
+the sites as JSON to PATH.
 Needs the card.
 """
 
@@ -31,6 +33,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from qrwbench import harness  # noqa: E402
+from qrw_tpu_torch.core import mpc_ddp  # noqa: E402
 from qrw_tpu_torch.ops import qp_pallas  # noqa: E402
 from qrw_tpu_torch.utils import profiling  # noqa: E402
 
@@ -124,6 +127,7 @@ def main(argv):
         saved = warnings.showwarning
         warnings.showwarning = show
         kinv0 = qp_pallas.KINV_LAUNCHES
+        derivs0 = mpc_ddp.DERIVS_LAUNCHES
         t0 = time.perf_counter()
         try:
             with warnings.catch_warnings():
@@ -139,6 +143,7 @@ def main(argv):
             warnings.showwarning = saved
         wall = time.perf_counter() - t0
         kinv = qp_pallas.KINV_LAUNCHES - kinv0
+        derivs = mpc_ddp.DERIVS_LAUNCHES - derivs0
         cell.close()
         rows = []
         for (site, fn), n in sorted(hits.items(), key=lambda kv: -kv[1]):
@@ -148,10 +153,12 @@ def main(argv):
                          "in_ilqr": in_ilqr[(site, fn)]})
         report[name] = {"cycle_s": wall, "sites": rows,
                         "kinv_launches": kinv,
+                        "derivs_launches": derivs,
                         "in_ilqr": sum(in_ilqr.values())}
         print(f"== {name}: one cycle {wall:.3f} s, "
               f"{sum(hits.values())} synchronizing calls at {len(rows)} "
-              f"sites, {kinv} K^-1 launches, "
+              f"sites, {kinv} K^-1 launches, {derivs} DDP derivatives "
+              f"launches, "
               f"{sum(in_ilqr.values())} inside qrw.ilqr", flush=True)
         for r in rows:
             mark = "ok " if "-" not in r["host_read"] else "OUT"
