@@ -229,10 +229,11 @@ import json
 import subprocess
 import sys
 import time
-from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from qrw_tpu_torch import kernels
 
 B_KERNEL = 1024
 TILE = 128
@@ -1141,9 +1142,9 @@ def check_kinv_kernel(cfg, device):
     out = {}
     for label, B, n in KINV_SHAPES:
         K = kinv_problems(cfg, B, n, device)
-        launches = qpp.KINV_LAUNCHES
+        launches = launched(KINV)
         X, nonpd = qpp._kinv_launch(K)
-        assert qpp.KINV_LAUNCHES == launches + 1
+        assert launched(KINV) == launches + 1
         K64 = K.double()
         K64 = (K64 + K64.transpose(1, 2)) / 2
         eye = torch.eye(n, device=device).expand(B, n, n)
@@ -1201,18 +1202,17 @@ def run_rescue_path(cfg, device):
     kw = dict(tile=TILE, rescue_cap=cap, stop_at_eps=True)
     n_norm, n_crip, n_rec = RESCUE_CYCLES
     torch.cuda.synchronize()
-    reset_counts()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     carry, l1, c1 = fl.fleet_rollout(ctl, carry, n_norm, ps, n_iters=300,
                                      **kw)
-    k2_0 = read_counts().k2
+    k2_0 = launched(*K2)
     carry, l2, c2 = fl.fleet_rollout(ctl, carry, n_crip, ps, n_iters=1, **kw)
-    k2_crip = read_counts().k2 - k2_0
+    k2_crip = launched(*K2) - k2_0
     carry, l3, c3 = fl.fleet_rollout(ctl, carry, n_rec, ps, n_iters=300, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = read_counts()
-    k1, k2, k2_dense = n.k1, n.k2, n.k2_dense
+    k1, k2, k2_dense = launched(K1), launched(*K2), launched(K2_DENSE)
     conv = [c.converged.float().mean(dim=1).cpu().numpy() for c in
             (c1, c2, c3)]
     n_conv_crip = int(c2.converged.sum())
@@ -1250,11 +1250,10 @@ def run_main_path(cfg, device):
     from qrw_tpu_torch.runtime.main import rescue_capacity, run_fleet
 
     cap = rescue_capacity(None, FLEET_B)
-    reset_counts()
+    kernels.reset_launches()
     carry, logs, cyc, wall, first = run_fleet(cfg, FLEET_B, TILE, 0, device,
                                               FLEET_CYCLES, cap)
-    n = read_counts()
-    launches, k2 = n.k1, n.k2
+    launches, k2 = launched(K1), launched(*K2)
     n_ticks = FLEET_CYCLES * cfg.k_mpc
     h = logs.base_pos[:, :, 2].cpu().numpy()
     err = logs.error.cpu().numpy()
@@ -1320,38 +1319,27 @@ def compare_slices(label, B, lk, ck, lp, cp):
     assert not bool(lk.error.any()), f"security latch in the {label} run"
 
 
-def reset_counts():
-    """Every kernel's launch counts to 0."""
-    from qrw_tpu_torch.ops import qp_pallas, qp_phase
-    qp_phase.CAP_LAUNCHES = {}
-    qp_phase.TILE_LAUNCHES = {}
-    qp_pallas.DENSE_KERNEL_LAUNCHES = 0
-    qp_pallas.CONE_LAUNCHES_BY_N = {}
-    qp_pallas.NS_KERNEL_LAUNCHES = 0
-    qp_pallas.NS_GENERAL_KERNEL_LAUNCHES = 0
+# The kernels' functions whose launches kernels.LAUNCHES counts: K1 by
+# (cap, tile); K2's cone and dense variants, K3's resident and general
+# variants and K^-1 by n; the DDP derivatives by itemsize
+K1 = "qrw_qp_phase_solve"
+K2_CONE, K2_DENSE = "qrw_qp_admm_cone_solve", "qrw_qp_admm_solve"
+K3_RESIDENT, K3_GENERAL = "qrw_ns_refine_tc", "qrw_ns_refine"
+K2, K3 = (K2_CONE, K2_DENSE), (K3_RESIDENT, K3_GENERAL)
+KINV, DERIVS = "qrw_kinv", "qrw_ddp_derivs"
 
 
-class Counts(NamedTuple):
-    k1: int                 # K1 launches
-    k1_caps: dict           # of them by cap
-    k2: int                 # K2 launches, both variants
-    k2_dense: int           # of them the dense variant's
-    k2_cone: dict           # of them the cone variant's by n
-    k3: int                 # K3 launches, both variants
-    k3_general: int         # of them the general variant's
-    k1_tiles: dict          # K1 launches by (cap, tile)
+def launched(*fns) -> int:
+    """Launches of the functions `fns` since kernels.reset_launches()."""
+    return sum(v for (f, _), v in kernels.launches().items() if f in fns)
 
 
-def read_counts() -> Counts:
-    """The launch counts since the last reset_counts()."""
-    from qrw_tpu_torch.ops import qp_pallas, qp_phase
-    caps = dict(qp_phase.CAP_LAUNCHES)
-    cone = dict(qp_pallas.CONE_LAUNCHES_BY_N)
-    dense = qp_pallas.DENSE_KERNEL_LAUNCHES
-    return Counts(sum(caps.values()), caps, dense + sum(cone.values()),
-                  dense, cone, qp_pallas.NS_KERNEL_LAUNCHES,
-                  qp_pallas.NS_GENERAL_KERNEL_LAUNCHES,
-                  dict(qp_phase.TILE_LAUNCHES))
+def caps(k1_launches) -> dict:
+    """K1's launches {(cap, tile): n} summed by cap."""
+    out = {}
+    for (cap, _), v in k1_launches.items():
+        out[cap] = out.get(cap, 0) + v
+    return out
 
 
 def run_hetero_path(cfg, device, calibration):
@@ -1366,13 +1354,13 @@ def run_hetero_path(cfg, device, calibration):
     from qrw_tpu_torch.sim import fleet as fl
 
     cap = rescue_capacity(None, HETERO_B)
-    reset_counts()
+    kernels.reset_launches()
     carry, cyc, meta, wall, first = run_hetero(
         cfg, HETERO_B, TILE, 0, device, HETERO_CYCLES, cap,
         calibration=calibration)
-    n = read_counts()
-    k1, k1_caps, k2, k2_dense, k2_n = n.k1, n.k1_caps, n.k2, n.k2_dense, \
-        n.k2_cone
+    k1, k1_caps = launched(K1), caps(kernels.launches(K1))
+    k2, k2_dense, k2_n = (launched(*K2), launched(K2_DENSE),
+                          dict(kernels.launches(K2_CONE)))
     sm = hetero_summary(carry, cyc, meta, TILE)
     n_ticks = HETERO_CYCLES * cfg.k_mpc
     ticks_s = HETERO_B * n_ticks / wall
@@ -1409,12 +1397,12 @@ def run_hetero_path(cfg, device, calibration):
               phase_periods=meta.phase_periods, perfect_estimator=False,
               with_logs=False)
     T = cfg.k_mpc
-    reset_counts()
+    kernels.reset_launches()
     carry, _, c2 = fl.fleet_rollout(ctl, carry, 1, ps, n_iters=1,
                                     v_ref_schedule=sched[:T], **kw)
     torch.cuda.synchronize()
-    n = read_counts()
-    k1c, k2c, k2c_dense, k2c_n = n.k1, n.k2, n.k2_dense, n.k2_cone
+    k1c, k2c, k2c_dense = launched(K1), launched(*K2), launched(K2_DENSE)
+    k2c_n = dict(kernels.launches(K2_CONE))
     carry, _, c3 = fl.fleet_rollout(ctl, carry, 2, ps, n_iters=300,
                                     v_ref_schedule=sched[T:], **kw)
     sm3 = hetero_summary(carry, c3, meta, TILE)
@@ -1505,9 +1493,9 @@ class SolveLog:
 
 def assert_no_kernel(label):
     """The single-robot path launches none of K1-K3."""
-    n = read_counts()
-    log(f"{label}: kernel launches K1 {n.k1}, K2 {n.k2}, K3 {n.k3}")
-    assert n.k1 == n.k2 == n.k3 == 0, n
+    n = (launched(K1), launched(*K2), launched(*K3))
+    log(f"{label}: kernel launches K1 {n[0]}, K2 {n[1]}, K3 {n[2]}")
+    assert n == (0, 0, 0), n
 
 
 def run_shakedown(cfg, device):
@@ -1517,7 +1505,7 @@ def run_shakedown(cfg, device):
     calibrates the heterogeneous fleet's bounding classes (phase 5b)."""
     from qrw_tpu_torch.sim import fleet as fl
 
-    reset_counts()
+    kernels.reset_launches()
     with SolveLog() as rec:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1554,7 +1542,7 @@ def run_batch_path(cfg, device):
     args = cli.build_argparser().parse_args(
         ["--batch", str(BATCH_B), "--ticks", str(BATCH_TICKS)])
     bcfg = cfg.replace(N_SIMULATION=BATCH_TICKS)
-    reset_counts()
+    kernels.reset_launches()
     with SolveLog() as rec:
         _, logs, wall = cli.run_single(bcfg, args, device, torch.float32)
         code = cli.single_summary(bcfg, args, logs, wall)
@@ -1605,7 +1593,7 @@ def check_card_vs_cpu(cfg, device, label="S3", tol64=None, n_ticks=None):
         q = carry.sim_state.q.clone()
         q[:, 7:] += dq
         carry = carry._replace(sim_state=carry.sim_state._replace(q=q))
-        reset_counts()
+        kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, card = rollout(ctl, tree_map(lambda a: a.to(device), carry),
@@ -1677,20 +1665,24 @@ def run_parity(cfg, device):
     Each run's JSON is printed (by the tool) and held to its bars; the
     relaxed chain launches K2 and K3 in every warm cycle, the phase
     solves K1 (cap 32 for the trot, cap 64 for the switch). Returns
-    ({label: JSON}, {label: Counts}, {label: wall seconds})."""
+    ({label: JSON}, {label: K1 launches by cap}, {label: wall
+    seconds})."""
     from qrw_tpu_torch.eval import parity_320
 
     outs, counts, walls = {}, {}, {}
     for argv in PARITY_ARGV:
         label = "switch" if "--switch" in argv else "trot"
-        reset_counts()
+        kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = parity_320.main(argv + ([] if device == "cuda" else ["--cpu"]))
         torch.cuda.synchronize()
         walls[label] = time.perf_counter() - t0
-        n = read_counts()
-        outs[label], counts[label] = out, n
+        k1, k1_caps = launched(K1), caps(kernels.launches(K1))
+        k2_cone = dict(kernels.launches(K2_CONE))
+        k2_dense, k3, k3_general = (launched(K2_DENSE), launched(*K3),
+                                    launched(K3_GENERAL))
+        outs[label], counts[label] = out, k1_caps
         warm = PARITY_CYCLES - 1
         log(f"E1 parity_320 {' '.join(argv)} on the card in "
             f"{walls[label]:.1f} s: relaxed conv "
@@ -1700,16 +1692,16 @@ def run_parity(cfg, device):
             f"{out['phase_match_rate']:.4f}, phase conv cold "
             f"{out['phase_conv_rate']:.4f} warm "
             f"{out['phase_warm_conv_rate']:.4f}, {out['n_phase_classes']} "
-            f"classes; launches K1 {n.k1} by cap {n.k1_caps}, K2 {n.k2} "
-            f"(cone by n {n.k2_cone}, dense {n.k2_dense}), K3 {n.k3} "
-            f"(general {n.k3_general}) for {warm} warm cycles")
+            f"classes; launches K1 {k1} by cap {k1_caps}, K2 "
+            f"{launched(*K2)} (cone by n {k2_cone}, dense {k2_dense}), K3 "
+            f"{k3} (general {k3_general}) for {warm} warm cycles")
         assert out["relaxed_conv_rate"] >= PARITY_CONV_BAR, out
         assert out["torque_err_max_Nm_relaxed"] < out["torque_budget_Nm"]
         assert out["phase_match_rate"] == 1.0, out["phase_match_rate"]
-        assert n.k2_cone.get(192, 0) >= warm and n.k2_dense == 0, n
-        assert n.k3 >= warm and n.k3_general == 0, n
+        assert k2_cone.get(192, 0) >= warm and k2_dense == 0, k2_cone
+        assert k3 >= warm and k3_general == 0, (k3, k3_general)
         want_cap = 64 if label == "switch" else 32
-        assert n.k1 >= 1 and set(n.k1_caps) == {want_cap}, n
+        assert k1 >= 1 and set(k1_caps) == {want_cap}, k1_caps
     return outs, counts, walls
 
 
@@ -1724,25 +1716,25 @@ def run_fleet_mpc_path(cfg, device):
     want = {4096: (1024, [0, 8]), 8192: (8192, list(range(16)))}
     out, k1_512 = {}, 0
     for batch in FLEET_MPC_BS:
-        reset_counts()
+        kernels.reset_launches()
         with Recorder(cli, "run_fleet_mpc") as rec:
             code = cli.main(["--fleet-mpc", str(batch), "--fleet-cycles",
                              str(FLEET_MPC_CYCLES), "--device", device])
-        n = read_counts()
+        k1, k1_tiles = launched(K1), dict(kernels.launches(K1))
         r, = rec.out
         log(f"E2 --fleet-mpc {batch}: B solved {r['B']} at tile "
             f"{r['tile']} over phases {r['phases']}, {r['solves_s']:.1f} "
             f"solves/s ({1e3 * r['s_per_cycle']:.3f} ms a warm cycle), "
             f"conv {r['conv']:.4f} (cold {r['cold_conv']:.4f}); K1 "
-            f"launches {n.k1} by (cap, tile) {n.k1_tiles}")
+            f"launches {k1} by (cap, tile) {k1_tiles}")
         assert code == 0 and (r["B"], r["phases"]) == want[batch], r
         assert r["tile"] == cli.FLEET_MPC_TILE == TILE512, r
         assert r["conv"] >= CONV_BAR, r
-        assert n.k1 == FLEET_MPC_CYCLES + 1, n
-        assert n.k1_tiles == {(32, TILE512): n.k1}, n
-        assert n.k2 == n.k3 == 0, n
+        assert k1 == FLEET_MPC_CYCLES + 1, k1_tiles
+        assert k1_tiles == {(32, TILE512): k1}, k1_tiles
+        assert launched(*K2, *K3) == 0, kernels.launches()
         out[batch] = r
-        k1_512 += n.k1_tiles[32, TILE512]
+        k1_512 += k1_tiles[32, TILE512]
     return out, k1_512
 
 
@@ -1753,7 +1745,7 @@ def run_sweep_path(cfg, device):
     from qrw_tpu_torch.eval import speed_sweep
     from qrw_tpu_torch.runtime import main as cli
 
-    reset_counts()
+    kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with Recorder(speed_sweep, "run_sweep") as rec:
@@ -1781,7 +1773,7 @@ def run_estimator_demo(cfg, device):
     from qrw_tpu_torch.eval import estimator_eval
     from qrw_tpu_torch.runtime import main as cli
 
-    reset_counts()
+    kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with Recorder(estimator_eval, "run_demo") as rec:
@@ -1804,9 +1796,12 @@ def run_estimator_demo(cfg, device):
 
 def device_busy(fn):
     """(wall ms, device ms) of one `fn()` under torch.profiler: the wall
-    between synchronizations and the summed self device time of its
-    kernels (None where the profiler records no device time)."""
+    between synchronizations and the union of its kernels' device
+    intervals, as qrwbench's device_idle_frac reads them (None where the
+    profiler records no device time)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from qrwbench.trace import union_seconds
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1815,11 +1810,12 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = 0.0
-    for e in prof.key_averages():
-        dev += getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) or 0.0
-    return 1e3 * wall, (dev / 1e3 if dev > 0 else None)
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = union_seconds([(e.start_ns(), e.end_ns())
+                         for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == cuda
+                         and not e.is_user_annotation()])
+    return 1e3 * wall, (1e3 * dev if dev > 0 else None)
 
 
 def _leaf_err(got, want):
@@ -1900,10 +1896,10 @@ def check_ddp_derivs_kernel(cfg, device):
     xT = state.xs[:, -1]
     flat = [a.reshape((B * N,) + a.shape[2:]) for a in args["node_args"]]
     term = args["term_args"]
-    launches = mpc_ddp.DERIVS_LAUNCHES
+    launches = launched(DERIVS)
     got = args["derivs"](X, U, flat, xT, term)
     torch.cuda.synchronize()
-    assert mpc_ddp.DERIVS_LAUNCHES == launches + 1
+    assert launched(DERIVS) == launches + 1
     c32 = mpc_ddp.make_consts(cfg, torch.float32, device)
     c64 = mpc_ddp.make_consts(cfg, torch.float64, device)
     plain = lambda: mpc_ddp._srb_derivs_plain(  # noqa: E731
@@ -1972,21 +1968,21 @@ def run_ddp_batch(cfg, device):
     xr_np, fs_np = build_batch(cfg, DDP_B, np.random.default_rng(11))
     xr = torch.as_tensor(xr_np, device=device)
     fs = torch.as_tensor(fs_np, device=device)
-    reset_counts()
+    kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st = mpc_ddp.solve_mpc_ddp(cfg, xr, fs).state          # warm-up cycle
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     t0 = time.perf_counter()
-    derivs0 = mpc_ddp.DERIVS_LAUNCHES
+    derivs0 = launched(DERIVS)
     for _ in range(DDP_CYCLES):
         res = mpc_ddp.solve_mpc_ddp(cfg, xr, fs, st)
         st = res.state
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     assert_no_kernel("D1 batched DDP")
-    derivs = mpc_ddp.DERIVS_LAUNCHES - derivs0
+    derivs = launched(DERIVS) - derivs0
     assert derivs == DDP_CYCLES * mpc_ddp.DDPSettings().max_iters, derivs
     ops = count_ops(lambda: mpc_ddp.solve_mpc_ddp(cfg, xr, fs, st))
     ops = (sum(ops.values()), launches(ops))
@@ -2042,7 +2038,7 @@ def run_ddp_cli(cfg, device):
     from qrw_tpu_torch.core import mpc_ddp
     from qrw_tpu_torch.runtime import main as cli
 
-    reset_counts()
+    kernels.reset_launches()
     with Recorder(mpc_ddp, "solve_mpc_ddp") as solves, \
             Recorder(cli, "run_single") as rec:
         code = cli.main(["--ddp", "--ticks", str(DDP_TICKS), "--device",
@@ -2063,7 +2059,7 @@ def run_single_config(label, cfg, device, n_ticks, module, name):
 
     args = cli.build_argparser().parse_args(["--ticks", str(n_ticks)])
     rcfg = cfg.replace(N_SIMULATION=n_ticks)
-    reset_counts()
+    kernels.reset_launches()
     with Recorder(module, name) as solves:
         _, logs, wall = cli.run_single(rcfg, args, device, torch.float32)
         code = cli.single_summary(rcfg, args, logs, wall)
@@ -2083,7 +2079,7 @@ def run_compare(cfg, device):
     force_rmse_mean < 3 N, both ways."""
     from qrw_tpu_torch.eval import compare
 
-    reset_counts()
+    kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     xr, fs = compare.capture_cycles(cfg, COMPARE_TICKS, device=device)
@@ -2191,7 +2187,7 @@ def run_ipc_phase():
 
     from qrw_tpu_torch.runtime import ipc
 
-    reset_counts()
+    kernels.reset_launches()
     so = ipc._build_lib()
     ipc.load_library()
     built = ("loaded cached" if ipc.BUILD_SECONDS is None else
@@ -2282,7 +2278,7 @@ def run_device_phase(cfg, device):
     the float64 hold against the same run on the CPU (S3's bar)."""
     from qrw_tpu_torch.sim.device import SimDevice, put_on_the_floor
 
-    reset_counts()
+    kernels.reset_launches()
     parts = []
     for dtype in (torch.float32, torch.float64):
         dev = SimDevice(cfg, dtype=dtype, device=device)
@@ -2323,7 +2319,7 @@ def run_host_loop_phase(cfg, device):
     from qrw_tpu_torch.runtime.host_loop import run_host_loop
     from qrw_tpu_torch.sim.device import SimDevice
 
-    reset_counts()
+    kernels.reset_launches()
     frames = np.zeros((1, FRAME_SIZE))
     frames[0, 0] = 0.5                       # the stick pushed forward
     # the reader starts now: its spawn overlaps the 120-tick run
@@ -2374,7 +2370,7 @@ def run_pipelined_phase(cfg, device, host_ms):
     latch; the periods' p50 and p99 beside H3's ms a tick."""
     from qrw_tpu_torch.runtime.host_loop import run_host_loop_pipelined
 
-    reset_counts()
+    kernels.reset_launches()
     r = run_host_loop_pipelined(cfg, n_ticks=HOST_TICKS, depth=2,
                                 torch_device=device)
     assert r.n_ticks == HOST_TICKS and not r.error
@@ -2404,7 +2400,7 @@ def run_realtime_phase(cfg, device):
         seen.append((late, self.overruns))
         return late
 
-    reset_counts()
+    kernels.reset_launches()
     ipc.Pacer.wait = wait
     try:
         t0 = time.perf_counter()
@@ -2447,7 +2443,7 @@ def run_mpc_service_phase(cfg, device):
     from qrw_tpu_torch.core import mpc as mpc_mod
     from qrw_tpu_torch.runtime.mpc_service import MPCService
 
-    reset_counts()
+    kernels.reset_launches()
     xref, fsteps = mpc_problem(cfg)
     svc = MPCService(cfg, device=device)
     try:
@@ -2491,7 +2487,7 @@ def run_replay_phase(cfg, device):
     from qrw_tpu_torch.sim.physics import init_sim_state
     from qrw_tpu_torch.sim.rollout import make_rollout, rollout
 
-    reset_counts()
+    kernels.reset_launches()
     ctl, carry = make_rollout(cfg, device=device)
     _, logs = rollout(ctl, carry, HOST_TICKS)
     sync_if(device)
@@ -2527,7 +2523,7 @@ def run_stage_timings(cfg, device):
     """U1: utils/profiling.stage_timings on the card."""
     from qrw_tpu_torch.utils.profiling import stage_timings
 
-    reset_counts()
+    kernels.reset_launches()
     t = stage_timings(cfg, reps=20, device=device)
     assert all(v > 0 for v in t.values()), t
     assert_no_kernel("U1 stage_timings")
@@ -2546,7 +2542,7 @@ def run_checkpoint_phase(cfg, device):
     from qrw_tpu_torch.utils.checkpoint import (_leaves_with_path,
                                                 load_state, save_state)
 
-    reset_counts()
+    kernels.reset_launches()
     ctl, carry = make_rollout(cfg, device=device)
     mid, _ = rollout(ctl, carry, 20)
     full, _ = rollout(ctl, mid, 20, k0=20)
@@ -2569,7 +2565,7 @@ def run_viz_phase(cfg, device, logs):
     float64 (1e-9 of scale)."""
     from qrw_tpu_torch.utils import viz
 
-    reset_counts()
+    kernels.reset_launches()
     sync_if(device)
     t0 = time.perf_counter()
     ticks, card = viz.mpc_predictions(logs, cfg, device=device)
@@ -2590,7 +2586,7 @@ def run_mesh_phase(cfg, device):
     from qrw_tpu_torch.parallel.mesh import make_mesh, scenario_metrics
     from qrw_tpu_torch.runtime import main as cli
 
-    reset_counts()
+    kernels.reset_launches()
     argv = ["--batch", str(MESH_B), "--ticks", str(MESH_TICKS)]
     with Recorder(cli, "run_single") as rec:
         code = cli.main(argv + ["--mesh", "--device", device])
@@ -3065,13 +3061,13 @@ def run_entry_point(cfg, device, argv=PROFILE_ARGV):
     from qrw_tpu_torch.eval import kernel_profile
     tiles = argv[argv.index("--tiles") + 1:]
     torch.cuda.synchronize()
-    reset_counts()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     res = kernel_profile.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = read_counts()
-    k2, k3, k2_dense, k3_general = n.k2, n.k3, n.k2_dense, n.k3_general
+    k2, k3 = launched(*K2), launched(*K3)
+    k2_dense, k3_general = launched(K2_DENSE), launched(K3_GENERAL)
     log(f"entry point python -m qrw_tpu_torch.eval.kernel_profile "
         f"{' '.join(argv)}: {wall:.2f} s; K2 launches {k2} ({k2_dense} of "
         f"the dense variant), K3 launches {k3} ({k3_general} of the "
@@ -3223,9 +3219,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from qrw_tpu_torch.config import Config
-    from qrw_tpu_torch import kernels
     from qrw_tpu_torch.core import mpc_lane as ml
-    from qrw_tpu_torch.ops import qp_pallas as qpp
 
     device = "cuda"
     card = card_line()
@@ -3283,9 +3277,8 @@ def main() -> int:
     check_cone_nonfinite(cfg, device)
     kinv = check_kinv_kernel(cfg, device)
     clock.lap("kernel build, K1, K2 and K^-1 checks")
-    kinv_launches = qpp.KINV_LAUNCHES
     k2_launches = run_rescue_path(cfg, device)
-    kinv_launches = qpp.KINV_LAUNCHES - kinv_launches
+    kinv_launches = launched(KINV)      # since run_rescue_path's reset
     assert kinv_launches > 0
     launches, _ = run_main_path(cfg, device)
     check_slice(cfg, ps, device)
@@ -3357,7 +3350,7 @@ def main() -> int:
         "name": "qp_phase_cap64", "route": "cuda",
         "source": "qrw_tpu_torch/csrc/qp_phase.cu",
         "replaces": "qrw_tpu/ops/qp_phase.py:233",
-        "launches": parity_counts["switch"].k1_caps.get(64, 0),
+        "launches": parity_counts["switch"].get(64, 0),
         "max_abs_err": err64, "B": B_KERNEL, "tile": CAP64_TILE,
         "ms": k64_ms[0], "plain_ms": p64_ms[0], "bound_ms": k64_bound[0],
         "bound_by": k64_bound[1], "library_ms": None,

@@ -29,7 +29,7 @@ On CUDA tensors the iLQR's derivatives (the dynamics' Jacobians, the
 running costs' gradients and Hessians on all B N node rows, the
 terminal cost's on the B terminal states) come from one launch of the
 hand-written kernel qrw_tpu_torch/csrc/ddp_derivs.cu an iteration
-(`_srb_derivs`, counter DERIVS_LAUNCHES), which writes them in the
+(`_srb_derivs`, counted in `kernels.LAUNCHES`), which writes them in the
 dense layouts `ilqr._backward` reads; `_srb_derivs_plain` is the same
 arithmetic in plain PyTorch. On the CPU the solve keeps `torch.func`,
 the JAX package's `jax.hessian` / `jacfwd` route.
@@ -44,6 +44,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from qrw_tpu_torch import kernels
 from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core.mpc import gait_from_fsteps
 from qrw_tpu_torch.ops import ilqr
@@ -63,11 +64,6 @@ MIN_FZ = 0.2
 SHOULDERS_XY = np.array([[0.1946, 0.1946, -0.1946, -0.1946],
                          [0.14695, -0.14695, 0.14695, -0.14695]])
 SHOULDER_EPS = 1e-12         # inside the shoulder distance's square root
-
-# Launches of the derivatives kernel (csrc/ddp_derivs.cu), one an iLQR
-# iteration of a solve on CUDA tensors. chip_smoke.py and
-# tests/torch_sync_sites.py read it.
-DERIVS_LAUNCHES = 0
 
 
 class DDPSettings(NamedTuple):
@@ -516,32 +512,6 @@ def derivs_flags(settings: DDPSettings) -> int:
             | int(settings.relative_forces) << 2)
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def _clib():
-    from qrw_tpu_torch import kernels
-    lib = kernels.library()
-    if lib.qrw_ddp_derivs.argtypes is None:
-        lib.qrw_ddp_derivs.argtypes = ([_I, _P, _I] + [_P] * 18 + [_I] * 3
-                                       + [_P])
-        lib.qrw_ddp_derivs.restype = _I
-        lib.qrw_ddp_derivs_blocks.argtypes = [_I, _P]
-        lib.qrw_ddp_derivs_blocks.restype = _I
-    return lib
-
-
-def _row_check(name, t, shape, like):
-    if t.dtype != like.dtype or t.device != like.device:
-        raise ValueError(f"ddp derivs kernel: {name} is {t.dtype} on "
-                         f"{t.device}, expected {like.dtype} on "
-                         f"{like.device}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"ddp derivs kernel: {name} has shape "
-                         f"{tuple(t.shape)}, expected {shape}")
-
-
 def _srb_derivs(params, flags: int, zero, X, U, flat, xT, term_args):
     """`ilqr.solve`'s `derivs` on CUDA tensors: one launch of the
     derivatives kernel (csrc/ddp_derivs.cu) over the R = B N node rows
@@ -550,7 +520,6 @@ def _srb_derivs(params, flags: int, zero, X, U, flat, xT, term_args):
     `derivs_params`, flags: `derivs_flags`, zero: a 0-d zero on the
     device, broadcast as lux). float32 or float64. Counts the rows
     ("ddp.derivs_rows", R + B, a host number) while a profiler runs."""
-    global DERIVS_LAUNCHES
     if X.device.type != "cuda":
         raise ValueError(f"ddp derivs kernel: X on {X.device}, not CUDA")
     if X.dtype not in (torch.float32, torch.float64):
@@ -567,27 +536,30 @@ def _srb_derivs(params, flags: int, zero, X, U, flat, xT, term_args):
     for name, t, shape in (
             ("X", X, (R, 12)), ("U", U, (R, 12)), ("feet", feet, (R, 12)),
             ("gait", gait, (R, 4)), ("xref", xref, (R, 12)), ("dt", dt, (R,)),
-            ("xT", xT, (B, 12)), ("xref_T", xrefT, (B, 12)),
-            ("feet_T", feetT, (B, 12)), ("gait_T", gaitT, (B, 4))):
-        _row_check(name, t, shape, X)
-    if xT.stride(1) != 1:
-        raise ValueError("ddp derivs kernel: xT's rows are not contiguous")
+            ("xref_T", xrefT, (B, 12)), ("feet_T", feetT, (B, 12)),
+            ("gait_T", gaitT, (B, 4))):
+        kernels.check(f"ddp derivs kernel: {name}", t, shape, X.dtype,
+                      X.device)
+    # xT may be a view with a row pitch (ldxT) other than 12
+    if ((xT.dtype, xT.device, xT.shape[1:]) != (X.dtype, X.device, (12,))
+            or xT.stride(1) != 1):
+        raise ValueError(f"ddp derivs kernel: xT is {xT.dtype} "
+                         f"{tuple(xT.shape)} on {xT.device} with strides "
+                         f"{xT.stride()}, expected {X.dtype} ({B}, 12) on "
+                         f"{X.device} with contiguous rows")
     fx, fu, lxx, luu, Vxx = (X.new_empty(r, 12, 12)
                              for r in (R, R, R, R, B))
     lx, lu, Vx = (X.new_empty(r, 12) for r in (R, R, B))
-    err = _clib().qrw_ddp_derivs(
-        X.element_size(), params, flags,
+    kernels.launch(
+        "qrw_ddp_derivs", X.element_size(), params, flags,
         X.data_ptr(), U.data_ptr(), feet.data_ptr(), gait.data_ptr(),
         xref.data_ptr(), dt.data_ptr(), xT.data_ptr(), xrefT.data_ptr(),
         feetT.data_ptr(), gaitT.data_ptr(),
         fx.data_ptr(), fu.data_ptr(), lx.data_ptr(), lu.data_ptr(),
         lxx.data_ptr(), luu.data_ptr(), Vx.data_ptr(), Vxx.data_ptr(),
         R, B, xT.stride(0),
-        torch.cuda.current_stream(X.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ddp derivs kernel launch failed: CUDA error "
-                           f"{err}")
-    DERIVS_LAUNCHES += 1
+        torch.cuda.current_stream(X.device).cuda_stream,
+        key=X.element_size())
     count("ddp.derivs_rows", R + B)
     return fx, fu, lx, lu, lxx, zero.expand(R, 12, 12), luu, Vx, Vxx
 
@@ -595,9 +567,4 @@ def _srb_derivs(params, flags: int, zero, X, U, flat, xT, term_args):
 def derivs_blocks_per_sm(itemsize: int) -> int:
     """Blocks of the derivatives kernel an SM holds at once for elements
     of `itemsize` bytes (4: float32, 8: float64)."""
-    out = ctypes.c_int(0)
-    err = _clib().qrw_ddp_derivs_blocks(int(itemsize), ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f"ddp derivs kernel occupancy query: CUDA "
-                           f"error {err}")
-    return out.value
+    return kernels.query("qrw_ddp_derivs_blocks", int(itemsize))

@@ -33,27 +33,15 @@ plain version.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from qrw_tpu_torch import kernels
 from qrw_tpu_torch.ops import lin, qp
 from qrw_tpu_torch.utils.profiling import (active, count, host_read, span,
                                            spanned)
-
-# Launches of the CUDA kernels on CUDA tensors: K2 (one per ADMM round)
-# by variant, the dense variant's (cone=None) in all and the cone
-# variant's by n, K3 (one per Newton-Schulz refinement in `_factor`,
-# either variant), of them the general variant's alone, and the K^-1
-# kernel (one per `_chol_inv`). chip_smoke.py resets them before a run
-# of the main path and reads them after.
-DENSE_KERNEL_LAUNCHES = 0
-CONE_LAUNCHES_BY_N = {}
-NS_KERNEL_LAUNCHES = 0
-NS_GENERAL_KERNEL_LAUNCHES = 0
-KINV_LAUNCHES = 0
 
 
 class PallasQPResult(NamedTuple):
@@ -304,58 +292,9 @@ def check_cone(A, cone) -> ConeDesc:
 
 
 # ----------------------------------------------------------------------
-# The CUDA kernel (qrw_tpu_torch/csrc/qp_admm.cu)
+# The CUDA kernels: K2 (qrw_tpu_torch/csrc/qp_admm.cu), K3 and K^-1, each
+# launch counted under its n
 # ----------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-
-
-def _cfunc():
-    from qrw_tpu_torch import kernels
-    lib = kernels.library()
-    fn = lib.qrw_qp_admm_solve
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 16 + [_I] * 4 + [_F] + [_P]
-        fn.restype = _I
-        lib.qrw_qp_admm_stages_A.argtypes = [_I, _I]
-        lib.qrw_qp_admm_stages_A.restype = _I
-        lib.qrw_qp_admm_smem_bytes.argtypes = [_I, _I]
-        lib.qrw_qp_admm_smem_bytes.restype = _I
-        lib.qrw_qp_admm_max_smem_bytes.argtypes = []
-        lib.qrw_qp_admm_max_smem_bytes.restype = _I
-        lib.qrw_qp_admm_cone_smem_bytes.argtypes = [_I] * 4
-        lib.qrw_qp_admm_cone_smem_bytes.restype = _I
-        lib.qrw_qp_admm_cone_solve.argtypes = ([_I, _F] + [_P] * 14
-                                               + [_I] * 4 + [_F] + [_P])
-        lib.qrw_qp_admm_cone_solve.restype = _I
-        lib.qrw_ns_refine.argtypes = [_P] * 5 + [_I] * 3 + [_P]
-        lib.qrw_ns_refine.restype = _I
-        lib.qrw_ns_refine_tc.argtypes = [_P] * 4 + [_I] * 3 + [_P]
-        lib.qrw_ns_refine_tc.restype = _I
-        lib.qrw_ns_refine_tc_max_active_clusters.argtypes = [_P]
-        lib.qrw_ns_refine_tc_max_active_clusters.restype = _I
-        lib.qrw_kinv.argtypes = [_P] * 3 + [_I] * 2 + [_P]
-        lib.qrw_kinv.restype = _I
-        lib.qrw_kinv_blocks_per_sm.argtypes = [_I, _P]
-        lib.qrw_kinv_blocks_per_sm.restype = _I
-    return lib
-
-
-def _check(name, t, shape, device):
-    if not torch.is_tensor(t):
-        raise TypeError(f"{name}: expected a tensor")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
 
 # n of the cone variant's compiled kernels by cone kind
 # (csrc/qp_admm.cu): both kinds at 96 and 192, the reduced cone also at
@@ -372,7 +311,6 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
     block's shared memory beside K^-1 (n = 192, m = 512) it reads A and a
     contiguous A' from device memory. Returns (x, y, z, pri, dua, n1,
     n2)."""
-    global DENSE_KERNEL_LAUNCHES
     B, n = q.shape
     m = A.shape[0]
     dev = q.device
@@ -384,7 +322,7 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
     if K is not None:
         checks.append(("K", K, (B, n, n)))
     for name, t, shape in checks:
-        _check(name, t, shape, dev)
+        kernels.check(name, t, shape, torch.float32, dev)
     if B < 1 or B > 2 ** 31 - 1:
         raise ValueError(f"batch {B} out of range")
     if K is not None and K.data_ptr() % 16:
@@ -394,7 +332,7 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
         raise ValueError(f"qp_admm cone kernel: no kernel for n={n}, m={m} "
                          f"and cone {cone}; compiled for n in "
                          f"{CONE_KERNEL_SHAPES} (cone kind: n)")
-    lib = _cfunc()
+    lib = kernels.library()
     have = lib.qrw_qp_admm_max_smem_bytes()
     if cone is not None:
         need = lib.qrw_qp_admm_cone_smem_bytes(cone.kind, n, m,
@@ -410,27 +348,21 @@ def _launch(Kinv, P, A, q, l, u, rho_vec, sig_vec, xw, yw, alpha: float,
     y = torch.empty((B, m), dtype=f32, device=dev)
     z = torch.empty((B, m), dtype=f32, device=dev)
     res = torch.empty((4, B), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     vecs = (P.data_ptr(), q.data_ptr(), l.data_ptr(), u.data_ptr(),
             rho_vec.data_ptr(), sig_vec.data_ptr(), xw.data_ptr(),
             yw.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
             res.data_ptr())
     Kp = None if K is None else K.data_ptr()
+    tail = (B, n, m, int(n_iters), float(alpha),
+            torch.cuda.current_stream(dev).cuda_stream)
     if cone is not None:
-        err = lib.qrw_qp_admm_cone_solve(
-            cone.kind, float(cone.mu), Kinv.data_ptr(), Kp, *vecs, B, n, m,
-            int(n_iters), float(alpha), stream)
+        kernels.launch("qrw_qp_admm_cone_solve", cone.kind, float(cone.mu),
+                       Kinv.data_ptr(), Kp, *vecs, *tail, key=n)
     else:
         At = A if lib.qrw_qp_admm_stages_A(n, m) else A.t().contiguous()
-        err = lib.qrw_qp_admm_solve(
-            Kinv.data_ptr(), Kp, P.data_ptr(), A.data_ptr(), At.data_ptr(),
-            *vecs[1:], B, n, m, int(n_iters), float(alpha), stream)
-    if err != 0:
-        raise RuntimeError(f"qp_admm kernel launch failed: CUDA error {err}")
-    if cone is None:
-        DENSE_KERNEL_LAUNCHES += 1
-    else:
-        CONE_LAUNCHES_BY_N[n] = CONE_LAUNCHES_BY_N.get(n, 0) + 1
+        kernels.launch("qrw_qp_admm_solve", Kinv.data_ptr(), Kp,
+                       P.data_ptr(), A.data_ptr(), At.data_ptr(), *vecs[1:],
+                       *tail, key=n)
     return x, y, z, res[0], res[1], res[2], res[3]
 
 
@@ -451,13 +383,11 @@ def ns_variant(n: int) -> str:
 def ns_max_active_clusters() -> int:
     """Clusters of the resident variant the card holds at once (one
     problem each); raises if the kernel cannot be resident at all."""
-    lib = _cfunc()
-    out = ctypes.c_int(0)
-    err = lib.qrw_ns_refine_tc_max_active_clusters(ctypes.byref(out))
-    if err != 0 or out.value < 1:
+    n_cl = kernels.query("qrw_ns_refine_tc_max_active_clusters")
+    if n_cl < 1:
         raise RuntimeError(f"ns_refine resident kernel: no cluster fits the "
-                           f"card (CUDA error {err}, {out.value} clusters)")
-    return out.value
+                           f"card ({n_cl} clusters)")
+    return n_cl
 
 
 def _ns_launch(K, X0, ns_iters: int, variant: str = None):
@@ -466,7 +396,6 @@ def _ns_launch(K, X0, ns_iters: int, variant: str = None):
     problem, the re-centring folded into its store. "general": one
     block per problem with a (B, 2, n, n) scratch, re-centred here.
     Returns (X re-centred as 0.5 (X + X'), resid)."""
-    global NS_KERNEL_LAUNCHES, NS_GENERAL_KERNEL_LAUNCHES
     B, n = K.shape[0], K.shape[-1]
     variant = ns_variant(n) if variant is None else variant
     if variant not in ("resident", "general"):
@@ -475,37 +404,28 @@ def _ns_launch(K, X0, ns_iters: int, variant: str = None):
         raise ValueError(f"ns_refine resident kernel: compiled for "
                          f"n = {NS_RESIDENT_N}, not n = {n}")
     dev = K.device
-    _check("K", K, (B, n, n), dev)
-    _check("X0", X0, (B, n, n), dev)
+    kernels.check("K", K, (B, n, n), torch.float32, dev)
+    kernels.check("X0", X0, (B, n, n), torch.float32, dev)
     if B < 1 or B > 2 ** 30:
         raise ValueError(f"batch {B} out of range")
     if ns_iters < 0:
         raise ValueError(f"ns_iters {ns_iters} < 0")
-    lib = _cfunc()
     f32 = torch.float32
     X = torch.empty((B, n, n), dtype=f32, device=dev)
     resid = torch.empty((B,), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    tail = (resid.data_ptr(), B, n, int(ns_iters),
+            torch.cuda.current_stream(dev).cuda_stream)
     if variant == "resident":
         if K.data_ptr() % 16 or X0.data_ptr() % 16:
             raise ValueError("K, X0: not 16-byte aligned (the kernel "
                              "copies 16 bytes at a time)")
-        err = lib.qrw_ns_refine_tc(K.data_ptr(), X0.data_ptr(), X.data_ptr(),
-                                   resid.data_ptr(), B, n, int(ns_iters),
-                                   stream)
-    else:
-        scratch = torch.empty((B, 2, n, n), dtype=f32, device=dev)
-        err = lib.qrw_ns_refine(K.data_ptr(), X0.data_ptr(), X.data_ptr(),
-                                scratch.data_ptr(), resid.data_ptr(), B, n,
-                                int(ns_iters), stream)
-    if err != 0:
-        raise RuntimeError(f"ns_refine {variant} kernel launch failed: CUDA "
-                           f"error {err}")
-    NS_KERNEL_LAUNCHES += 1
-    if variant == "general":
-        NS_GENERAL_KERNEL_LAUNCHES += 1
-        X = 0.5 * (X + X.transpose(1, 2))
-    return X, resid
+        kernels.launch("qrw_ns_refine_tc", K.data_ptr(), X0.data_ptr(),
+                       X.data_ptr(), *tail, key=n)
+        return X, resid
+    scratch = torch.empty((B, 2, n, n), dtype=f32, device=dev)
+    kernels.launch("qrw_ns_refine", K.data_ptr(), X0.data_ptr(),
+                   X.data_ptr(), scratch.data_ptr(), *tail, key=n)
+    return 0.5 * (X + X.transpose(1, 2)), resid
 
 
 # The largest n of the K^-1 kernel (csrc/qp_kinv.cu): a 6 x 6 tile of
@@ -517,33 +437,25 @@ def _kinv_launch(K):
     """Launch the K^-1 kernel on the current stream, one block per
     problem. Returns (K^-1 (B, n, n), nonpd (B,) int32: 1 where the whole
     K^-1 is NaN)."""
-    global KINV_LAUNCHES
     B, n = K.shape[0], K.shape[-1]
-    _check("K", K, (B, n, n), K.device)
+    kernels.check("K", K, (B, n, n), torch.float32, K.device)
     if n > KINV_MAX_N:
         raise ValueError(f"kinv kernel: n = {n} > {KINV_MAX_N}, the largest "
                          f"n whose factor fits a block's shared memory and "
                          f"whose 6 x 6 tiles fit its 1,024 threads")
     if B < 1 or B > 2 ** 31 - 1 or n < 1:
         raise ValueError(f"kinv kernel: batch {B} of n = {n} out of range")
-    lib = _cfunc()
     X = torch.empty_like(K)
     nonpd = torch.empty((B,), dtype=torch.int32, device=K.device)
-    err = lib.qrw_kinv(K.data_ptr(), X.data_ptr(), nonpd.data_ptr(), B, n,
-                       torch.cuda.current_stream(K.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"kinv kernel launch failed: CUDA error {err}")
-    KINV_LAUNCHES += 1
+    kernels.launch("qrw_kinv", K.data_ptr(), X.data_ptr(), nonpd.data_ptr(),
+                   B, n, torch.cuda.current_stream(K.device).cuda_stream,
+                   key=n)
     return X, nonpd
 
 
 def kinv_blocks_per_sm(n: int) -> int:
     """Blocks of the K^-1 kernel at n an SM holds at once."""
-    out = ctypes.c_int(0)
-    err = _cfunc().qrw_kinv_blocks_per_sm(int(n), ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f"kinv kernel occupancy query: CUDA error {err}")
-    return out.value
+    return kernels.query("qrw_kinv_blocks_per_sm", int(n))
 
 
 @spanned("qp.k2")

@@ -25,22 +25,16 @@ never falls back to the plain version.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from qrw_tpu_torch import kernels
 from qrw_tpu_torch.utils.profiling import host_read, spanned
 
 X_CLIP = 100.0          # primal safeguard box [N]
 Y_CLIP = 1.0e4          # dual safeguard box
-
-# Count launches of the CUDA kernel (one per `solve` call on CUDA
-# tensors) by cap, and by (cap, tile). chip_smoke.py resets them before a
-# run and reads them after.
-CAP_LAUNCHES = {}
-TILE_LAUNCHES = {}
 
 
 class PhaseQPData(NamedTuple):
@@ -287,27 +281,9 @@ def solve_plain(q, BlS, data: PhaseQPData, phases_of, x0=None, y0=None,
 
 
 # ----------------------------------------------------------------------
-# The CUDA kernel (qrw_tpu_torch/csrc/qp_phase.cu)
+# The CUDA kernel (qrw_tpu_torch/csrc/qp_phase.cu), launches counted
+# under (cap, tile)
 # ----------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-
-
-def _cfunc():
-    from qrw_tpu_torch import kernels
-    lib = kernels.library()
-    fn = lib.qrw_qp_phase_solve
-    if fn.argtypes is None:
-        fn.argtypes = ([_P] * 14 + [_P] + [_I] * 7 + [_F] * 9 + [_P])
-        fn.restype = _I
-        lib.qrw_qp_phase_geometry.argtypes = [_I, _I, _P]
-        lib.qrw_qp_phase_geometry.restype = _I
-        lib.qrw_qp_phase_max_active_clusters.argtypes = [_I, _I, _I, _P]
-        lib.qrw_qp_phase_max_active_clusters.restype = _I
-    return lib
-
 
 # The kernel spreads a tile over a cluster of thread blocks, each holding
 # tile // cluster problems; it is compiled for these block sizes and for
@@ -394,28 +370,7 @@ def max_active_clusters(tile: int, B: int, cap: int = 32) -> int:
     """Clusters of a B-problem launch that the card can hold at once
     (cudaOccupancyMaxActiveClusters at the launch's own cluster size,
     16 blocks where launch_geometry says so)."""
-    lib = _cfunc()
-    out = ctypes.c_int(0)
-    err = lib.qrw_qp_phase_max_active_clusters(cap, tile, B,
-                                               ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f"qp_phase kernel: cluster occupancy query "
-                           f"failed: error {err}")
-    return int(out.value)
-
-
-def _check(name, t, shape, dtype, device):
-    if not torch.is_tensor(t):
-        raise TypeError(f"{name}: expected a tensor")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+    return kernels.query("qrw_qp_phase_max_active_clusters", cap, tile, B)
 
 
 def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
@@ -428,26 +383,22 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
     m = 5 * cap
     P = data.Kbar_inv.shape[0]
     dev, f32 = q.device, torch.float32
-    _check("q", q, (n, B), f32, dev)
-    _check("BlS_tor", BlS_tor, (3, cap, 3, B), f32, dev)
-    _check("x0", x0, (n, B), f32, dev)
-    _check("y0", y0, (m, B), f32, dev)
-    _check("Kbar_inv", data.Kbar_inv, (P, n, n), f32, dev)
-    _check("G1", data.G1, (P, cap, cap), f32, dev)
-    _check("G2", data.G2, (P, cap, cap), f32, dev)
-    _check("l", data.l, (m,), f32, dev)
-    _check("u", data.u, (m,), f32, dev)
-    _check("phases_of", ph, (B // tile,), torch.int32, dev)
+    for name, t, shape in (
+            ("q", q, (n, B)), ("BlS_tor", BlS_tor, (3, cap, 3, B)),
+            ("x0", x0, (n, B)), ("y0", y0, (m, B)),
+            ("Kbar_inv", data.Kbar_inv, (P, n, n)),
+            ("G1", data.G1, (P, cap, cap)), ("G2", data.G2, (P, cap, cap)),
+            ("l", data.l, (m,)), ("u", data.u, (m,))):
+        kernels.check(name, t, shape, f32, dev)
+    kernels.check("phases_of", ph, (B // tile,), torch.int32, dev)
     if check_every < 1:
         raise ValueError(f"check_every {check_every} < 1")
     geo = launch_geometry(cap, tile, B)
-    lib = _cfunc()
-    built = (ctypes.c_int * 4)()
-    if (lib.qrw_qp_phase_geometry(cap, tile, built) != 0
-            or tuple(built) != (geo.problems_per_block, geo.cluster,
-                                geo.threads, geo.smem_bytes)):
+    built = kernels.query("qrw_qp_phase_geometry", cap, tile, n_out=4)
+    if built != (geo.problems_per_block, geo.cluster, geo.threads,
+                 geo.smem_bytes):
         raise RuntimeError(f"qp_phase kernel: the compiled launch geometry "
-                           f"{tuple(built)} is not {geo}")
+                           f"{built} is not {geo}")
     if (cap, tile, B) not in _CLUSTERS_CHECKED:
         n_cl = max_active_clusters(tile, B, cap)
         if n_cl < 1:
@@ -464,24 +415,18 @@ def _launch(q, BlS_tor, data, ph, x0, y0, n_iters, eps_abs, eps_rel,
     with host_read("k1_weights"):
         w12 = torch.cat([data.wtop.reshape(6), data.wbot.reshape(6)]).to(
             "cpu", torch.float32).numpy()
-    w12_c = (ctypes.c_float * 12)(*[float(v) for v in w12])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.qrw_qp_phase_solve(
+    kernels.launch(
+        "qrw_qp_phase_solve",
         q.data_ptr(), BlS_tor.data_ptr(), x0.data_ptr(), y0.data_ptr(),
         data.Kbar_inv.data_ptr(), data.G1.data_ptr(), data.G2.data_ptr(),
         ph.data_ptr(), data.l.data_ptr(), data.u.data_ptr(),
-        x.data_ptr(), y.data_ptr(), z.data_ptr(),
-        res.data_ptr(), ctypes.cast(w12_c, ctypes.c_void_p),
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), res.data_ptr(),
+        w12.ctypes.data,
         B, cap, tile, P, int(n_iters), int(check_every), int(stop_at_eps),
         float(data.rho), float(data.alpha), float(data.mu),
         float(data.dt * data.dt), float(data.dt_m), float(data.w_force),
         float(1.0 / data.c_scale), float(eps_abs), float(eps_rel),
-        stream)
-    if err != 0:
-        raise RuntimeError(f"qp_phase kernel launch failed: CUDA error "
-                           f"{err}")
-    CAP_LAUNCHES[cap] = CAP_LAUNCHES.get(cap, 0) + 1
-    TILE_LAUNCHES[cap, tile] = TILE_LAUNCHES.get((cap, tile), 0) + 1
+        torch.cuda.current_stream(dev).cuda_stream, key=(cap, tile))
     return x, y, z, res
 
 

@@ -44,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+from qrw_tpu_torch import kernels
 from qrw_tpu_torch.config import Config
 from qrw_tpu_torch.core import mpc_ddp
 from qrw_tpu_torch.eval.kernel_profile import build_batch
@@ -78,9 +79,10 @@ def _case(kind, toggles, dtype, device):
     args = mpc_ddp._setup(CFG, xref, fsteps, None, settings, dt_first, None)
     flat = [a.reshape((B_ROWS * N,) + a.shape[2:])
             for a in args["node_args"]]
-    launches = mpc_ddp.DERIVS_LAUNCHES
+    launches = kernels.launches("qrw_ddp_derivs")[X.element_size()]
     got = args["derivs"](X, U, flat, xT, args["term_args"])
-    assert mpc_ddp.DERIVS_LAUNCHES == launches + 1
+    assert kernels.launches("qrw_ddp_derivs")[X.element_size()] == \
+        launches + 1
     plain = mpc_ddp._srb_derivs_plain(
         CFG, settings, mpc_ddp.make_consts(CFG, dtype, device), X, U, flat,
         xT, args["term_args"])
@@ -119,9 +121,10 @@ def _warm_solves(dtype, device, state64=None):
     state = mpc_ddp.DDPState(*(t.to(dtype) for t in state64))
     args = mpc_ddp._setup(CFG, xr, fs, state, settings, None, None)
     assert args["derivs"] is not None
-    launches = mpc_ddp.DERIVS_LAUNCHES
+    launches = kernels.launches("qrw_ddp_derivs")[xr.element_size()]
     got = ilqr.solve(**args, settings=settings.to_ilqr())
-    assert mpc_ddp.DERIVS_LAUNCHES == launches + settings.max_iters
+    assert kernels.launches("qrw_ddp_derivs")[xr.element_size()] == \
+        launches + settings.max_iters
     args["derivs"] = None
     want = ilqr.solve(**args, settings=settings.to_ilqr())
     torch.cuda.synchronize()

@@ -21,6 +21,7 @@ nothing for a wrong entry.
 import pytest
 import torch
 
+from qrw_tpu_torch import kernels
 from qrw_tpu_torch.ops import qp_pallas as qpp
 
 # n: the rolled rescue's, the fleet rescue's, the full size's, and one
@@ -60,11 +61,11 @@ def test_kinv_kernel_against_float64(card, n, B):
     j = B // 2
     Kb = K.clone()
     Kb[j, n // 3, n // 3] = -1.0            # problem j: a negative pivot
-    launches = qpp.KINV_LAUNCHES
+    launches = kernels.launches("qrw_kinv")[n]
     X, nonpd = qpp._kinv_launch(K)
     Xb, nonpd_b = qpp._kinv_launch(Kb)
     torch.cuda.synchronize()
-    assert qpp.KINV_LAUNCHES == launches + 2
+    assert kernels.launches("qrw_kinv")[n] == launches + 2
 
     S = (K.double() + K.double().transpose(1, 2)) / 2
     eye = torch.eye(n, device=card).expand(B, n, n)

@@ -59,6 +59,16 @@ FORCE = np.array([6.0, -4.0, 0.0])
 SPAWN = mp.get_context("spawn")
 
 
+@pytest.fixture
+def single_threaded_children(monkeypatch):
+    """A child spawned in the test starts with one OpenMP and one
+    OpenBLAS thread, as single_thread() leaves this process: with the
+    other test workers busy, a child with the default pools can take
+    many times longer over its first solves."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("OPENBLAS_NUM_THREADS", "1")
+
+
 def _name(tag):
     return f"/qrwt_{tag}_{os.getpid()}_{time.monotonic_ns():x}"
 
@@ -104,7 +114,7 @@ def test_mailbox_round_trip_and_sequence():
         box.close()
 
 
-def test_mailbox_across_a_spawned_process():
+def test_mailbox_across_a_spawned_process(single_threaded_children):
     name = _name("xp")
     box = tipc.Mailbox(name, (8,))
     try:
@@ -349,7 +359,7 @@ def test_damping_shutdown_parity():
 # The gamepad reader and the clone
 # ----------------------------------------------------------------------
 
-def test_gamepad_reader_publishes_frames():
+def test_gamepad_reader_publishes_frames(single_threaded_children):
     from qrw_tpu_torch.runtime.gamepad import (FRAME_SIZE, GamepadReader,
                                                SyntheticGamepad)
     frames = np.zeros((4, FRAME_SIZE))
@@ -374,7 +384,7 @@ def test_gamepad_reader_publishes_frames():
     assert not gp._proc.is_alive()
 
 
-def test_host_loop_with_gamepad_and_clone():
+def test_host_loop_with_gamepad_and_clone(single_threaded_children):
     """The gamepad drives the command (a held stick), the clone gets the
     same commands: its joints equal the primary's."""
     from qrw_tpu_torch.runtime.gamepad import (FRAME_SIZE, GamepadReader,
@@ -418,7 +428,7 @@ def _mpc_problem():
     return xref, fsteps
 
 
-def test_mpc_service_matches_direct_solve():
+def test_mpc_service_matches_direct_solve(single_threaded_children):
     """One spawned worker on the CPU: its plan against the port's direct
     solve and qrw_tpu's; the stale read; the warm second solve; stop."""
     from qrw_tpu.core import mpc as jmpc

@@ -11,8 +11,8 @@ printed with how often it fired and whether it fired inside a
 `utils/profiling.host_read` span (`qrw.sync.<site>`). A site outside
 every such span is a library call that synchronizes on its own (name it)
 or a read to wrap. Also prints the cycle's launches of the K^-1 kernel
-(`ops/qp_pallas.KINV_LAUNCHES`) and of the DDP derivatives kernel
-(`core/mpc_ddp.DERIVS_LAUNCHES`: one an iLQR iteration) and how many
+and of the DDP derivatives kernel (one an iLQR iteration), as
+`kernels.launches()` counts them, and how many
 of the synchronizing calls fired inside the DDP solver's span
 `qrw.ilqr` (the DDP cell's target is none). With --out, also writes
 the sites as JSON to PATH.
@@ -33,8 +33,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 from qrwbench import harness  # noqa: E402
-from qrw_tpu_torch.core import mpc_ddp  # noqa: E402
-from qrw_tpu_torch.ops import qp_pallas  # noqa: E402
+from qrw_tpu_torch import kernels  # noqa: E402
 from qrw_tpu_torch.utils import profiling  # noqa: E402
 
 PORT = os.path.join(ROOT, "qrw_tpu_torch")
@@ -126,8 +125,7 @@ def main(argv):
 
         saved = warnings.showwarning
         warnings.showwarning = show
-        kinv0 = qp_pallas.KINV_LAUNCHES
-        derivs0 = mpc_ddp.DERIVS_LAUNCHES
+        kernels.reset_launches()
         t0 = time.perf_counter()
         try:
             with warnings.catch_warnings():
@@ -142,8 +140,8 @@ def main(argv):
         finally:
             warnings.showwarning = saved
         wall = time.perf_counter() - t0
-        kinv = qp_pallas.KINV_LAUNCHES - kinv0
-        derivs = mpc_ddp.DERIVS_LAUNCHES - derivs0
+        kinv = kernels.launches("qrw_kinv").total()
+        derivs = kernels.launches("qrw_ddp_derivs").total()
         cell.close()
         rows = []
         for (site, fn), n in sorted(hits.items(), key=lambda kv: -kv[1]):
