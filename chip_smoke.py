@@ -120,13 +120,23 @@ Phases (any failure ends the run with a non-zero exit):
    core/mpc_ddp_planner, eval/compare; each phase asserts that it
    launched none of K1-K3, as in qrw_tpu, where they reach no
    pl.pallas_call; on the card solve_mpc_ddp takes its derivatives from
-   one launch of csrc/ddp_derivs.cu an iteration, the planner keeps
-   torch.func).
+   one launch of csrc/ddp_derivs.cu an iteration and its initial rollout
+   and line searches from one launch each of csrc/ddp_linesearch.cu, the
+   planner keeps torch.func and the plain line search).
    D0. The DDP derivatives kernel at the DDP cell's shape (B = 32,768 x
    N = 16 rows): the rows of a warm solve's first iteration, its float32
    outputs against the plain version's (DERIVS_TOL32 of scale, off the
    shoulder penalty's kink) and both against float64; the kernel, the
    plain version and the torch.func route timed, the bound in bytes.
+   D0b. The DDP line-search kernel at the same shape (9 step sizes): a
+   warm solve's first iteration, its float32 result and the plain
+   version's against the float64 plain version (cost error, share of
+   trajectories within 1e-4 of scale, the same accept as the plain
+   version on 99% of problems and wherever rounding cannot decide, the
+   new iterate within 1e-4 of scale of the plain version's there, the
+   old one kept bit for bit on a reject, the states the rollout of the
+   controls and the cost theirs); the kernel and the plain version
+   timed, the bound in bytes.
    D1. bench.py::run_ddp_bench through the port: B = 1024 trot problems
    of build_batch(cfg, B, default_rng(11)), one warm-started batched
    DDP solve a cycle, 1 warm-up and 10 timed cycles: solves/s, ms a
@@ -252,6 +262,7 @@ BATCH_B = 256                   # S2: the CLI's --batch at full width
 BATCH_TICKS = 300               # S2: 30 MPC cycles
 S3_TICKS = 20                   # S3: card against CPU
 DERIVS_B = 32768                # D0: the DDP cell's batch (B N rows)
+LS_TIE = 4e-6                   # D0b: a tie of costs, a share of their scale
 # D0: the derivatives kernel's float32 outputs against the plain
 # version's, as a share of each output's scale, on the rows farther than
 # DERIVS_KINK_M from the shoulder penalty's kink (tests/
@@ -1327,6 +1338,7 @@ K2_CONE, K2_DENSE = "qrw_qp_admm_cone_solve", "qrw_qp_admm_solve"
 K3_RESIDENT, K3_GENERAL = "qrw_ns_refine_tc", "qrw_ns_refine"
 K2, K3 = (K2_CONE, K2_DENSE), (K3_RESIDENT, K3_GENERAL)
 KINV, DERIVS = "qrw_kinv", "qrw_ddp_derivs"
+LINESEARCH = "qrw_ddp_linesearch"
 
 
 def launched(*fns) -> int:
@@ -1952,6 +1964,178 @@ def check_ddp_derivs_kernel(cfg, device):
             "rel_err": {n: e[0] for n, e in errs.items()}}
 
 
+def linesearch_work(B, N, A, itemsize=4):
+    """Operations and bytes of one launch of the DDP line-search kernel on
+    B problems of N nodes and A step sizes: ~600 flop a (problem, step
+    size, node) (the gains' product, the SRB step, the costs); a problem
+    reads its gains N (144 + 12) values, its trajectory (2N + 1) 12, its
+    node arguments N (12 + 4 + 12 + 1), its terminal arguments 28, x0 12,
+    its cost and regularization, and writes its new trajectory, cost,
+    regularization and trace entry."""
+    reads = N * (144 + 12) + (2 * N + 1) * 12 + N * 29 + 28 + 12 + 2
+    writes = (2 * N + 1) * 12 + 3
+    return 600 * B * A * N, itemsize * B * (reads + writes)
+
+
+def check_ddp_linesearch_kernel(cfg, device):
+    """D0b: the DDP line-search kernel (csrc/ddp_linesearch.cu) at the DDP
+    cell's shape (B = DERIVS_B trot problems of build_batch, N = 16, the
+    9 step sizes): the first iteration of a warm solve (a cold solve
+    first, its solution carried; the iterate's rollout, derivatives and
+    backward pass through the solver's own code). One launch.
+    Every third problem's current cost is set to 0, so that it is
+    rejected. Checked, the float32 plain version beside it under the
+    same measures:
+    - the accepted cost's relative error against the float64 plain
+      version's, at most twice the plain version's plus 1e-6;
+    - the same accept as the plain version on 99% of problems, and on
+      every problem whose choice rounding cannot decide (each step
+      size's float64 cost, the best two and the best and the current
+      cost apart by more than LS_TIE of the cost scale, as the card test
+      `test_linesearch_kernel_against_plain` splits them);
+    - the new iterate xs, us: on a rejected problem the old one, bit for
+      bit; on every problem rounding cannot decide within 1e-4 of scale
+      of the plain version's; the share of problems within 1e-4 of scale
+      of the float64 plain version's at least the plain version's;
+    - the iterate against itself: the float64 rollout of its controls
+      us from x0 within 1e-4 of scale of its states xs, and that
+      rollout's cost against the reported cost of an accepted problem
+      (relative error at most twice the plain version's plus 1e-6), so
+      the states, controls and cost written belong to one step size.
+    Times the kernel and the plain version. Returns the kernels JSON
+    entry's numbers."""
+    from qrw_tpu_torch.core import mpc_ddp
+    from qrw_tpu_torch.eval.kernel_profile import build_batch
+    from qrw_tpu_torch.ops import ilqr
+
+    B, N = DERIVS_B, cfg.n_steps
+    xr_np, fs_np = build_batch(cfg, B, np.random.default_rng(13))
+    settings = mpc_ddp.DDPSettings()
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        xr = torch.as_tensor(xr_np, device=device, dtype=dtype)
+        fs = torch.as_tensor(fs_np, device=device, dtype=dtype)
+        if dtype == torch.float32:
+            state = mpc_ddp.solve_mpc_ddp(cfg, xr, fs, None, settings).state
+        st = mpc_ddp.DDPState(*(t.to(dtype) for t in state))
+        args = mpc_ddp._setup(cfg, xr, fs, st, settings, None, None)
+
+        def plain_of(alphas, a=args):
+            return ilqr.plain_linesearch(
+                a["step"], a["cost"], a["cost_T"], a["node_args"],
+                a["term_args"], settings.to_ilqr()._replace(alphas=alphas),
+                a["project_u"])
+        runs[dtype] = (args, plain_of(settings.alphas), plain_of)
+    args, plain, _ = runs[torch.float32]
+    args64, plain64, plain64_of = runs[torch.float64]
+    reg = torch.full((B,), settings.reg_init, device=device)
+    trace = torch.empty((B, settings.max_iters), device=device)
+    xs, us, cost, _, _ = plain(args["x0"], None, args["us0"], None, None,
+                               None, reg, trace, 0)
+    flat = [a.reshape((B * N,) + a.shape[2:]) for a in args["node_args"]]
+    d = args["derivs"](xs[:, :-1].reshape(B * N, 12), us.reshape(B * N, 12),
+                       flat, xs[:, -1], args["term_args"])
+    d = [t.reshape((B, N) + t.shape[1:]) for t in d[:7]] + list(d[7:])
+    kffs, Ks = ilqr._backward(*d, reg[:, None, None] * torch.eye(
+        12, device=device))
+    # every third problem's current cost 0: no step size beats it, so the
+    # kernel keeps its iterate (the reject's copy)
+    third = torch.arange(B, device=device) % 3 == 0
+    cost = torch.where(third, 0.0, cost)
+    inputs = (args["x0"], xs, us, kffs, Ks, cost, reg)
+    inputs64 = tuple([t.double() for t in a] if isinstance(a, list)
+                     else a.double() for a in inputs)
+    trace64 = trace.double()
+
+    def kernel():
+        return args["linesearch"](*inputs, trace, 0)
+
+    def plain32():
+        return plain(*inputs, trace, 0)
+
+    launches = launched(LINESEARCH)
+    got = kernel()
+    torch.cuda.synchronize()
+    assert launched(LINESEARCH) == launches + 1
+    p32 = plain32()
+    p64 = plain64(*inputs64, trace64, 0)
+    # each step size's float64 cost (+inf for NaN): where the best two,
+    # or the best and the current cost, lie within LS_TIE of the cost
+    # scale, rounding may decide the choice
+    inf64 = torch.full((B,), torch.inf, dtype=torch.float64, device=device)
+    each = torch.stack([plain64_of((a,))(*inputs64[:5], inf64, inputs64[6],
+                                         trace64, 0)[2]
+                        for a in settings.alphas])
+    cost_scale = max(1.0, float(p64[2].abs().max()))
+    top2 = each.sort(0).values[:2]
+    sure = ~(((top2[1] - top2[0]).abs() <= LS_TIE * cost_scale)
+             | ((top2[0] - inputs64[5]).abs() <= LS_TIE * cost_scale))
+    del each, top2
+    scales = [max(1.0, float(p64[i].abs().max())) for i in (0, 1)]
+
+    def gap(a, b):
+        """The largest gap of xs and of us, each a share of its scale, a
+        problem."""
+        return torch.maximum(*[(a[i].double() - b[i].double()).abs()
+                               .flatten(1).amax(1) / scales[i]
+                               for i in (0, 1)])
+
+    errs = {}
+    for name, r in (("kernel", got), ("plain", p32)):
+        cost_err = ((r[2].double() - p64[2]) / p64[2].abs()).abs()[p64[4]]
+        kept = ~r[4]
+        assert torch.equal(r[0][kept], xs[kept]), name
+        assert torch.equal(r[1][kept], us[kept]), name
+        # the float64 rollout of the iterate's controls
+        own = plain64(inputs64[0], None, r[1].double(), None, None, None,
+                      inputs64[6], trace64, 0)
+        own_err = ((r[2].double() - own[2]) / own[2].abs()).abs()[r[4]]
+        errs[name] = dict(
+            cost_err=float(cost_err.max()),
+            near=float((gap(r, p64) <= 1e-4).double().mean()),
+            accepted=float(r[4].double().mean()),
+            own_x=float((r[0].double() - own[0]).abs().max()) / scales[0],
+            own_cost=float(own_err.max()))
+        del own
+    same = float((got[4] == p32[4]).double().mean())
+    sure_gap = float(gap(got, p32)[sure].max())
+    k, p = errs["kernel"], errs["plain"]
+    assert k["cost_err"] <= 2 * p["cost_err"] + 1e-6, errs
+    assert same >= 0.99, same
+    assert not bool(got[4][third].any()) and bool(got[4].any())
+    assert torch.equal(got[4][sure], p32[4][sure])
+    assert sure_gap <= 1e-4, sure_gap
+    assert k["near"] >= p["near"], errs
+    assert k["own_x"] <= 1e-4, errs
+    assert k["own_cost"] <= 2 * p["own_cost"] + 1e-6, errs
+    n_sure = int(sure.sum())
+    del p32, p64, got, sure
+    k_ms = time_ms(kernel)
+    p_ms = time_ms(plain32, windows=3)
+    b_ms, b_by = bound(*linesearch_work(B, N, len(settings.alphas)))
+    log(f"D0b DDP line-search kernel, B = {B}, N = {N}, "
+        f"{len(settings.alphas)} step sizes, float32, kernel / plain: "
+        "largest relative cost error against the float64 plain version "
+        f"{k['cost_err']:.2e} / {p['cost_err']:.2e}; share of problems "
+        f"within 1e-4 of scale of its xs and us {k['near']:.5f} / "
+        f"{p['near']:.5f}; accepted share {k['accepted']:.5f} / "
+        f"{p['accepted']:.5f}; the iterate's states against the float64 "
+        f"rollout of its controls {k['own_x']:.2e} / {p['own_x']:.2e} of "
+        f"scale, its cost against that rollout's {k['own_cost']:.2e} / "
+        f"{p['own_cost']:.2e}; the same accept as the plain version on "
+        f"{same:.5f}; {n_sure} problems whose choice rounding cannot "
+        f"decide, where the kernel's iterate lies within {sure_gap:.2e} of "
+        f"scale of the plain version's; {k_ms[0]:.4f} ms "
+        f"[{k_ms[1]:.4f}-{k_ms[2]:.4f}] "
+        f"(bound {b_ms:.4f} ms, {b_by}: {100 * b_ms / k_ms[0]:.1f}%), "
+        f"plain {p_ms[0]:.3f} ms")
+    return {"B": B, "N": N, "ms": k_ms[0], "ms_min": k_ms[1],
+            "ms_max": k_ms[2], "plain_ms": p_ms[0], "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / k_ms[0],
+            "checks": errs, "same_accept": same, "sure": n_sure,
+            "sure_gap": sure_gap}
+
+
 def run_ddp_batch(cfg, device):
     """D1: bench.py::run_ddp_bench through the port: B = 1024 trot
     problems of build_batch(cfg, B, default_rng(11)) (the port's copy in
@@ -1975,7 +2159,7 @@ def run_ddp_batch(cfg, device):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     t0 = time.perf_counter()
-    derivs0 = launched(DERIVS)
+    derivs0, ls0 = launched(DERIVS), launched(LINESEARCH)
     for _ in range(DDP_CYCLES):
         res = mpc_ddp.solve_mpc_ddp(cfg, xr, fs, st)
         st = res.state
@@ -1984,6 +2168,9 @@ def run_ddp_batch(cfg, device):
     assert_no_kernel("D1 batched DDP")
     derivs = launched(DERIVS) - derivs0
     assert derivs == DDP_CYCLES * mpc_ddp.DDPSettings().max_iters, derivs
+    searches = launched(LINESEARCH) - ls0
+    assert searches == DDP_CYCLES * (1 + mpc_ddp.DDPSettings().max_iters), \
+        searches
     ops = count_ops(lambda: mpc_ddp.solve_mpc_ddp(cfg, xr, fs, st))
     ops = (sum(ops.values()), launches(ops))
     prof_wall, prof_dev = device_busy(
@@ -2000,7 +2187,8 @@ def run_ddp_batch(cfg, device):
         f"{DDP_CYCLES} warm cycles in {wall:.3f} s: "
         f"{DDP_B * DDP_CYCLES / wall:.1f} solves/s, {ms:.3f} ms a batched "
         f"solve ({1e3 * ms / DDP_B:.3f} us a problem; warm-up cycle "
-        f"{first:.3f} s); {derivs} derivatives kernel launches; "
+        f"{first:.3f} s); {derivs} derivatives and {searches} line-search "
+        "kernel launches; "
         f"{ops[0]} torch ops a solve, {ops[1]} not views "
         f"(launches); device time of one solve (torch.profiler) {busy}; "
         f"mean total fz of the first node {fz_mean:.4f} N "
@@ -2106,11 +2294,14 @@ def run_compare(cfg, device):
 
 
 def run_ddp_phases(cfg, device, clock):
-    """D0-D6 in order; each asserts that it launched none of K1-K3."""
+    """D0, D0b, D1-D6 in order; each asserts that it launched none of
+    K1-K3."""
     from qrw_tpu_torch.core import mpc_ddp, mpc_ddp_planner
 
     d0 = check_ddp_derivs_kernel(cfg, device)
     clock.lap("D0")
+    d0b = check_ddp_linesearch_kernel(cfg, device)
+    clock.lap("D0b")
     d1 = run_ddp_batch(cfg, device)
     clock.lap("D1")
     d2 = run_ddp_cli(cfg, device)
@@ -2132,7 +2323,7 @@ def run_ddp_phases(cfg, device, clock):
     clock.lap("D5")
     d6 = run_compare(cfg, device)
     clock.lap("D6")
-    return d0, d1, d2, d3, d4, d6
+    return (d0, d0b), d1, d2, d3, d4, d6
 
 
 # ----------------------------------------------------------------------
@@ -3299,7 +3490,7 @@ def main() -> int:
     check_card_vs_cpu(cfg.replace(kf_enabled=True), device, label="E4")
     run_estimator_demo(cfg, device)
     clock.lap("E4, E5")
-    d0 = run_ddp_phases(cfg, device, clock)[0]
+    d0, d0b = run_ddp_phases(cfg, device, clock)[0]
     h7_logs, _ = run_host_phases(cfg, device, clock)
     run_util_phases(cfg, device, clock, h7_logs)
     del h7_logs
@@ -3409,7 +3600,12 @@ def main() -> int:
         "source": "qrw_tpu_torch/csrc/ddp_derivs.cu",
         "replaces": None, "stands_for": "qrw_tpu/ops/ilqr.py (jacfwd, "
         "jax.hessian)", "path": "core/mpc_ddp.solve_mpc_ddp (D0, D1)",
-        **d0}]}))
+        **d0}, {
+        "name": "ddp_linesearch", "route": "cuda",
+        "source": "qrw_tpu_torch/csrc/ddp_linesearch.cu",
+        "replaces": None, "stands_for": "qrw_tpu/ops/ilqr.py:118-132 "
+        "(jax.vmap(forward))", "path": "core/mpc_ddp.solve_mpc_ddp (D0b, "
+        "D1)", **d0b}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

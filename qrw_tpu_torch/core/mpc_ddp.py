@@ -31,8 +31,11 @@ terminal cost's on the B terminal states) come from one launch of the
 hand-written kernel qrw_tpu_torch/csrc/ddp_derivs.cu an iteration
 (`_srb_derivs`, counted in `kernels.LAUNCHES`), which writes them in the
 dense layouts `ilqr._backward` reads; `_srb_derivs_plain` is the same
-arithmetic in plain PyTorch. On the CPU the solve keeps `torch.func`,
-the JAX package's `jax.hessian` / `jacfwd` route.
+arithmetic in plain PyTorch. The solve's initial rollout and each
+iteration's line search and accept come from one launch each of
+qrw_tpu_torch/csrc/ddp_linesearch.cu (`_srb_linesearch`), whose plain
+version is `ilqr.plain_linesearch`. On the CPU the solve keeps
+`torch.func` and the plain line search, the JAX package's routes.
 """
 
 from __future__ import annotations
@@ -312,16 +315,23 @@ def _setup(cfg: Config, xref, fsteps, state, settings: DDPSettings,
         return _stage_cost(cfg, x, None, xref_T, feet_T, gait_T,
                            terminal=True, k=consts)
 
+    node_args = (feet, gait, xref_n, dt)
     term_args = (xref_n[:, -1], feet[:, -1], gait[:, -1])
-    derivs = None
+    derivs = linesearch = None
     if dev.type == "cuda":
-        # the kernel reads its rows contiguous: made so once a solve
+        # the kernels read their rows contiguous: made so once a solve
+        x0 = x0.contiguous()
+        node_args = tuple(a.contiguous() for a in node_args)
         term_args = tuple(a.contiguous() for a in term_args)
-        derivs = functools.partial(_srb_derivs, derivs_params(cfg),
-                                   derivs_flags(settings), consts.zero)
+        prm, flags = derivs_params(cfg), derivs_flags(settings)
+        derivs = functools.partial(_srb_derivs, prm, flags, consts.zero)
+        linesearch = functools.partial(
+            _srb_linesearch, prm, flags, linesearch_params(settings),
+            node_args, term_args)
     return dict(step=step, cost=cost, cost_T=cost_T, x0=x0, us0=us0,
-                node_args=(feet, gait, xref_n, dt), term_args=term_args,
-                project_u=lambda u, k: u * umask[:, k], derivs=derivs)
+                node_args=node_args, term_args=term_args,
+                project_u=lambda u, k: u * umask[:, k], derivs=derivs,
+                linesearch=linesearch)
 
 
 # ----------------------------------------------------------------------
@@ -568,3 +578,120 @@ def derivs_blocks_per_sm(itemsize: int) -> int:
     """Blocks of the derivatives kernel an SM holds at once for elements
     of `itemsize` bytes (4: float32, 8: float64)."""
     return kernels.query("qrw_ddp_derivs_blocks", int(itemsize))
+
+
+# ----------------------------------------------------------------------
+# The line search and accept, and the initial rollout: the kernel
+# ----------------------------------------------------------------------
+
+# csrc/ddp_linesearch.cu's MAX_N and MAX_A, kept in step by hand: the
+# launcher refuses a larger problem in words, the kernel's own check (it
+# returns -1) is a backstop
+MAX_NODES = 32
+MAX_ALPHAS = 32
+
+
+def linesearch_params(settings: DDPSettings):
+    """The line-search kernel's host parameters: 4 + A doubles, reg_min,
+    reg_max, reg_inc, reg_dec and the A step sizes; the kernel rounds
+    them to its type. Nothing is copied to the card."""
+    vals = [settings.reg_min, settings.reg_max, settings.reg_inc,
+            settings.reg_dec, *settings.alphas]
+    return (ctypes.c_double * len(vals))(*vals)
+
+
+def _check_rows(name, t, shape, like):
+    """kernels.check, and the 16-byte alignment the kernel's vector loads
+    need."""
+    kernels.check(f"ddp line search kernel: {name}", t, shape, like.dtype,
+                  like.device)
+    if t.data_ptr() % 16:
+        raise ValueError(f"ddp line search kernel: {name} is not 16-byte "
+                         f"aligned")
+
+
+def _srb_linesearch(params, flags: int, ls, node_args, term_args, x0, xs,
+                    us, kffs, Ks, cost, reg, trace, it):
+    """`ilqr.solve`'s `linesearch` on CUDA tensors (its contract in
+    ops/ilqr's docstring): one launch of the line-search kernel
+    (csrc/ddp_linesearch.cu) over the B problems, on the current stream;
+    nothing is read back. params: `derivs_params`, flags: `derivs_flags`,
+    ls: `linesearch_params`; node_args = (feet (B, N, 12), gait (B, N, 4),
+    xref (B, N, 12), dt (B, N)), term_args = (xref (B, 12), feet (B, 12),
+    gait (B, 4)), contiguous; x0 (B, 12); us (B, N, 12); for the line
+    search xs (B, N+1, 12), the N kffs (B, 12) and Ks (B, 12, 12)
+    (column-major, as `ilqr._backward`'s solve leaves them: each K.mT
+    dense), cost, reg (B,) and trace (B, M) with
+    0 <= it < M; kffs and Ks None for the initial rollout. float32 or
+    float64. Counts the problems ("ddp.linesearch_problems", B a launch, a
+    host number) while a profiler runs. Every argument is checked against
+    x0's dtype and device before x0's own device and dtype are."""
+    B, N = us.shape[0], us.shape[1]
+    A = len(ls) - 4
+    if not (1 <= B < 2 ** 31 and 1 <= N <= MAX_NODES
+            and 1 <= A <= MAX_ALPHAS):
+        raise ValueError(f"ddp line search kernel: {B} problems of {N} "
+                         f"nodes, {A} step sizes (at most {MAX_NODES} "
+                         f"nodes and {MAX_ALPHAS} step sizes)")
+    feet, gait, xref, dt = node_args
+    xrefT, feetT, gaitT = term_args
+    for name, t, shape in (
+            ("x0", x0, (B, 12)), ("us", us, (B, N, 12)),
+            ("feet", feet, (B, N, 12)), ("gait", gait, (B, N, 4)),
+            ("xref", xref, (B, N, 12)), ("dt", dt, (B, N)),
+            ("xref_T", xrefT, (B, 12)), ("feet_T", feetT, (B, 12)),
+            ("gait_T", gaitT, (B, 4))):
+        _check_rows(name, t, shape, x0)
+    if kffs is not None:
+        if len(kffs) != N or len(Ks) != N:
+            raise ValueError(f"ddp line search kernel: {len(kffs)} kffs and "
+                             f"{len(Ks)} Ks for {N} nodes")
+        _check_rows("xs", xs, (B, N + 1, 12), x0)
+        for k, kff in enumerate(kffs):
+            _check_rows(f"kffs[{k}]", kff, (B, 12), x0)
+        for k, K in enumerate(Ks):
+            _check_rows(f"Ks[{k}].mT", K.mT if torch.is_tensor(K)
+                        and K.dim() >= 2 else K,
+                        (B, 12, 12), x0)
+        for name, t in (("cost", cost), ("reg", reg)):
+            kernels.check(f"ddp line search kernel: {name}", t, (B,),
+                          x0.dtype, x0.device)
+        ld_trace = trace.shape[-1] if trace.dim() == 2 else 0
+        kernels.check("ddp line search kernel: trace", trace, (B, ld_trace),
+                      x0.dtype, x0.device)
+        if not 0 <= it < ld_trace:
+            raise ValueError(f"ddp line search kernel: column {it} of a "
+                             f"trace of {ld_trace}")
+    if x0.device.type != "cuda":
+        raise ValueError(f"ddp line search kernel: x0 on {x0.device}, not "
+                         f"CUDA")
+    if x0.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"ddp line search kernel: {x0.dtype}, expected "
+                         f"float32 or float64")
+    xs_out, cost_out = x0.new_empty((B, N + 1, 12)), x0.new_empty((B,))
+    if kffs is None:                            # the initial rollout
+        us_out = reg_out = accepted = None
+        xs_p = kff_p = K_p = cost_p = reg_p = trace_p = None
+        us_p = reg_out_p = acc_p = None
+        ld_trace = it = 0
+    else:
+        us_out, reg_out = x0.new_empty((B, N, 12)), x0.new_empty((B,))
+        accepted = torch.empty((B,), dtype=torch.bool, device=x0.device)
+        xs_p, cost_p, reg_p, trace_p, us_p, reg_out_p, acc_p = (
+            t.data_ptr() for t in (xs, cost, reg, trace, us_out, reg_out,
+                                   accepted))
+        kff_p = (ctypes.c_void_p * N)(*[t.data_ptr() for t in kffs])
+        K_p = (ctypes.c_void_p * N)(*[t.data_ptr() for t in Ks])
+    kernels.launch(
+        "qrw_ddp_linesearch", x0.element_size(), params, flags, ls, A,
+        x0.data_ptr(), xs_p, us.data_ptr(), kff_p, K_p,
+        feet.data_ptr(), gait.data_ptr(), xref.data_ptr(), dt.data_ptr(),
+        xrefT.data_ptr(), feetT.data_ptr(), gaitT.data_ptr(), cost_p, reg_p,
+        xs_out.data_ptr(), us_p, cost_out.data_ptr(), reg_out_p, trace_p,
+        acc_p, B, N, ld_trace, it,
+        torch.cuda.current_stream(x0.device).cuda_stream,
+        key=x0.element_size())
+    count("ddp.linesearch_problems", B)
+    if kffs is None:
+        return xs_out, us, cost_out, reg, None
+    return xs_out, us_out, cost_out, reg_out, accepted

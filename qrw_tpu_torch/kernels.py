@@ -64,12 +64,14 @@ SIGNATURES = {
     # ddp_derivs.cu (the DDP derivatives)
     "qrw_ddp_derivs_blocks": "ip",
     "qrw_ddp_derivs": "ipi" + "p" * 18 + "i" * 3 + "p",
+    # ddp_linesearch.cu (the DDP line search and accept)
+    "qrw_ddp_linesearch": "ipipi" + "p" * 20 + "i" * 4 + "p",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 # Launches since the last reset_launches(), by (function, key); the key is
 # the launcher's: (cap, tile) for K1, n for K2, K3 and K^-1, the itemsize
-# for the DDP derivatives.
+# for the DDP derivatives and line search.
 LAUNCHES = collections.Counter()
 
 _LIB = None
@@ -92,6 +94,11 @@ def sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def headers():
+    """The headers the sources include (part of the build's hash)."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _LIB, BUILD_SECONDS, BUILD_LOG
@@ -101,7 +108,7 @@ def library() -> ctypes.CDLL:
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    for s in srcs + headers():
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)

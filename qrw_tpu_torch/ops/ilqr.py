@@ -41,6 +41,23 @@ come flat ((B N, n, n) ...), Vx (B, n) and Vxx (B, n, n) are the
 terminal cost's gradient and Hessian. It must give what `torch.func`
 gives on step, cost and cost_T (core/mpc_ddp passes the SRB model's
 hand-written kernel on CUDA tensors).
+
+An optional `linesearch` does the initial rollout and each iteration's
+line search and accept in place of `plain_linesearch` (core/mpc_ddp
+passes the SRB model's kernel on CUDA tensors):
+    linesearch(x0, xs, us, kffs, Ks, cost, reg, trace, it)
+        -> (xs, us, cost, reg, accepted)
+with the iterate xs (B, N+1, n), us (B, N, m), its cost (B,), the
+regularization reg (B,) and the backward pass's lists of N feed-forward
+terms kffs (B, m) and gains Ks (B, m, n): every step size's closed-loop
+rollout u_k = project_u(us_k + alpha kff_k + K_k (x_k - xs_k), k), the
+best (a NaN cost counts as +inf, the first of equal costs wins) accepted
+where its cost is below `cost`; it returns the new iterate (the old one
+where rejected), cost and regularization, the accepted flags (B,) bool,
+and writes the new cost into column `it` of trace (B, max_iters). With
+kffs and Ks None it is the initial rollout of us from x0: (xs, us as
+given, its cost, reg as given, None); xs, cost, trace and it are not
+read.
 """
 
 from __future__ import annotations
@@ -106,18 +123,14 @@ def _terminal_second_order(fn):
     return jacfwd(grad, has_aux=True)
 
 
-@spanned("ilqr")
-def solve(step: Callable, cost: Callable, cost_T: Callable,
-          x0: torch.Tensor, us0: torch.Tensor,
-          node_args: Sequence[torch.Tensor] = (),
-          term_args: Sequence[torch.Tensor] = (),
-          settings: ILQRSettings = ILQRSettings(),
-          project_u: Optional[Callable] = None,
-          derivs: Optional[Callable] = None) -> ILQRResult:
-    """Run iLQR from the warm start us0. x0: (B, n), us0: (B, N, m)."""
-    B, N, m = us0.shape
-    n = x0.shape[-1]
-    dtype, dev = x0.dtype, x0.device
+def plain_linesearch(step: Callable, cost: Callable, cost_T: Callable,
+                     node_args: Sequence[torch.Tensor] = (),
+                     term_args: Sequence[torch.Tensor] = (),
+                     settings: ILQRSettings = ILQRSettings(),
+                     project_u: Optional[Callable] = None) -> Callable:
+    """The solver's own `linesearch` (the contract in the module
+    docstring) on the problem of `solve`'s arguments: every step size at
+    once as one more batch axis (A, B, ...), node by node."""
     if project_u is None:
         def project_u(u, k):
             return u
@@ -133,29 +146,78 @@ def solve(step: Callable, cost: Callable, cost_T: Callable,
                 + cost_T(xs[..., -1, :],
                          *[t.expand(lead + t.shape) for t in term_args]))
 
-    def rollout(us):
-        x, xs = x0, [x0]
+    def linesearch(x0, xs, us, kffs, Ks, cost_now, reg, trace, it):
+        B, N, _ = us.shape
+        if kffs is None:
+            x, xs = x0, [x0]
+            for k in range(N):
+                x = step(x, us[:, k], *at(k))
+                xs.append(x)
+            xs = torch.stack(xs, 1)
+            return xs, us, total_cost(xs, us), reg, None
+        n = x0.shape[-1]
+        _, alphas = _constants(tuple(settings.alphas), us.shape[-1],
+                               x0.dtype, x0.device)
+        A = alphas.shape[0]
+        rows = torch.arange(B, device=x0.device)
+        # every alpha at once, (A, B, ...)
+        x = x0.expand(A, B, n)
+        xs_c, us_c = [x], []
         for k in range(N):
-            x = step(x, us[:, k], *at(k))
-            xs.append(x)
-        xs = torch.stack(xs, 1)
-        return xs, total_cost(xs, us)
+            u = project_u(us[:, k] + alphas[:, None, None] * kffs[k]
+                          + _mv(Ks[k], x - xs[:, k]), k)
+            x = step(x, u, *at(k, (A,)))
+            xs_c.append(x)
+            us_c.append(u)
+        xs_c, us_c = torch.stack(xs_c, 2), torch.stack(us_c, 2)
+        costs = total_cost(xs_c, us_c, (A,))
+        costs = torch.where(torch.isnan(costs), torch.inf, costs)
+        best = torch.argmin(costs, dim=0)                   # (B,)
+        best_cost = costs[best, rows]
+        improved = best_cost < cost_now
+        xs = torch.where(improved[:, None, None], xs_c[best, rows], xs)
+        us = torch.where(improved[:, None, None], us_c[best, rows], us)
+        cost_now = torch.where(improved, best_cost, cost_now)
+        reg = torch.where(improved,
+                          torch.clamp(reg * settings.reg_dec,
+                                      min=settings.reg_min),
+                          torch.clamp(reg * settings.reg_inc,
+                                      max=settings.reg_max))
+        trace[:, it] = cost_now
+        return xs, us, cost_now, reg, improved
 
+    return linesearch
+
+
+@spanned("ilqr")
+def solve(step: Callable, cost: Callable, cost_T: Callable,
+          x0: torch.Tensor, us0: torch.Tensor,
+          node_args: Sequence[torch.Tensor] = (),
+          term_args: Sequence[torch.Tensor] = (),
+          settings: ILQRSettings = ILQRSettings(),
+          project_u: Optional[Callable] = None,
+          derivs: Optional[Callable] = None,
+          linesearch: Optional[Callable] = None) -> ILQRResult:
+    """Run iLQR from the warm start us0. x0: (B, n), us0: (B, N, m)."""
+    B, N, m = us0.shape
+    n = x0.shape[-1]
+    dtype, dev = x0.dtype, x0.device
+    if linesearch is None:
+        linesearch = plain_linesearch(step, cost, cost_T, node_args,
+                                      term_args, settings, project_u)
     fxu_fn = vmap(jacfwd(step, argnums=(0, 1)))
     l_fn = vmap(_second_order(cost))
     lT_fn = vmap(_terminal_second_order(cost_T))
     flat = [a.reshape((B * N,) + a.shape[2:]) for a in node_args]
-    eye, alphas = _constants(tuple(settings.alphas), m, dtype, dev)
-    A = alphas.shape[0]
-    rows = torch.arange(B, device=dev)
+    eye, _ = _constants(tuple(settings.alphas), m, dtype, dev)
 
     count("ilqr.problems", B * settings.max_iters)
-    with span("ilqr.rollout"):
-        xs, cost_now = rollout(us0)
-    us = us0
     reg = torch.full((B,), settings.reg_init, dtype=dtype, device=dev)
-    trace = []
-    for _ in range(settings.max_iters):
+    trace = x0.new_empty((B, settings.max_iters))
+    with span("ilqr.rollout"):
+        xs, us, cost_now, _, _ = linesearch(x0, None, us0, None, None, None,
+                                            reg, trace, 0)
+    for it in range(settings.max_iters):
         with span("ilqr.derivs"):
             X = xs[:, :-1].reshape(B * N, n)
             U = us.reshape(B * N, m)
@@ -174,35 +236,12 @@ def solve(step: Callable, cost: Callable, cost_T: Callable,
             kffs, Ks = _backward(fx, fu, lx, lu, lxx, lux, luu, Vx, Vxx,
                                  reg[:, None, None] * eye)
         with span("ilqr.linesearch"):
-            # every alpha at once, (A, B, ...)
-            x = x0.expand(A, B, n)
-            xs_c, us_c = [x], []
-            for k in range(N):
-                u = project_u(us[:, k] + alphas[:, None, None] * kffs[k]
-                              + _mv(Ks[k], x - xs[:, k]), k)
-                x = step(x, u, *at(k, (A,)))
-                xs_c.append(x)
-                us_c.append(u)
-            xs_c, us_c = torch.stack(xs_c, 2), torch.stack(us_c, 2)
-            costs = total_cost(xs_c, us_c, (A,))
-            costs = torch.where(torch.isnan(costs), torch.inf, costs)
-            best = torch.argmin(costs, dim=0)                   # (B,)
-            best_cost = costs[best, rows]
+            xs, us, cost_now, reg, improved = linesearch(
+                x0, xs, us, kffs, Ks, cost_now, reg, trace, it)
         with span("ilqr.accept"):
-            improved = best_cost < cost_now
-            xs = torch.where(improved[:, None, None], xs_c[best, rows], xs)
-            us = torch.where(improved[:, None, None], us_c[best, rows], us)
-            cost_now = torch.where(improved, best_cost, cost_now)
-            reg = torch.where(improved,
-                              torch.clamp(reg * settings.reg_dec,
-                                          min=settings.reg_min),
-                              torch.clamp(reg * settings.reg_inc,
-                                          max=settings.reg_max))
-            trace.append(cost_now)
             if active():
                 count("ilqr.accepted", improved.sum())
-    return ILQRResult(xs=xs, us=us, cost=cost_now,
-                      cost_trace=torch.stack(trace, -1))
+    return ILQRResult(xs=xs, us=us, cost=cost_now, cost_trace=trace)
 
 
 def _backward(fx, fu, lx, lu, lxx, lux, luu, Vx, Vxx, reg_I):

@@ -52,6 +52,7 @@ from qrw_tpu.config import Config
 from qrw_tpu.core import mpc_ddp as jddp
 from qrw_tpu.core import mpc_ddp_planner as jpl
 from qrw_tpu.ops import ilqr as jilqr
+from qrw_tpu_torch import kernels
 from qrw_tpu_torch.config import Config as TConfig
 from qrw_tpu_torch.core import mpc_ddp as tddp
 from qrw_tpu_torch.core import mpc_ddp_planner as tpl
@@ -273,6 +274,84 @@ def test_ilqr_solve_parity():
         _close(getattr(got, leaf)[0].numpy(), getattr(want, leaf), 1e-9,
                leaf)
     assert float(got.cost_trace[0, -1]) < float(got.cost_trace[0, 0])
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_ilqr_solve_with_plain_linesearch(variant):
+    """ops/ilqr.solve given its own plain line search as `linesearch`
+    equals the solve with linesearch=None bit for bit, on the parity
+    problems: the callable serves the initial rollout (no gains) and each
+    iteration's line search, accept and cost-trace column."""
+    settings = tddp.DDPSettings(**VARIANTS[variant])
+    args = tddp._setup(TCFG, _t(XREFS), _t(FSTEPS), None, settings, None,
+                       None)
+    assert args["linesearch"] is None          # the CPU keeps the plain one
+    want = tilqr.solve(**args, settings=settings.to_ilqr())
+    plain = tilqr.plain_linesearch(
+        args["step"], args["cost"], args["cost_T"], args["node_args"],
+        args["term_args"], settings.to_ilqr(), args["project_u"])
+    calls = []
+
+    def linesearch(*a):
+        calls.append(a[3] is None)
+        return plain(*a)
+
+    got = tilqr.solve(**dict(args, linesearch=linesearch),
+                      settings=settings.to_ilqr())
+    assert calls == [True] + [False] * settings.max_iters
+    for leaf in ("xs", "us", "cost", "cost_trace"):
+        assert torch.equal(getattr(got, leaf), getattr(want, leaf)), leaf
+
+
+def _linesearch_call(case):
+    """The line-search kernel's launcher with CPU arguments of the parity
+    problems, `case` spoiling one of them."""
+    settings = tddp.DDPSettings()
+    f32 = torch.float32
+    args = tddp._setup(TCFG, _t(XREFS, f32), _t(FSTEPS, f32), None, settings,
+                       None, None)
+    res = tilqr.solve(**args, settings=settings.to_ilqr()._replace(
+        max_iters=1))
+    kffs = [torch.zeros(B, 12) for _ in range(N)]
+    Ks = [torch.zeros(B, 12, 12).transpose(1, 2) for _ in range(N)]
+    call = dict(x0=args["x0"].contiguous(), xs=res.xs, us=res.us, kffs=kffs,
+                Ks=Ks, cost=res.cost, reg=torch.ones(B),
+                trace=torch.zeros(B, 10), it=3)
+    if case == "rollout":
+        call.update(xs=None, kffs=None, Ks=None, cost=None, reg=None)
+    elif case == "shape":
+        call["xs"] = res.xs[:, :-1].contiguous()
+    elif case == "dtype":
+        kffs[3] = kffs[3].double()
+    elif case == "layout":
+        Ks[2] = Ks[2].contiguous()
+    elif case == "column":
+        call["it"] = 10
+    return tddp._srb_linesearch(
+        tddp.derivs_params(TCFG), tddp.derivs_flags(settings),
+        tddp.linesearch_params(settings),
+        tuple(a.contiguous() for a in args["node_args"]),
+        tuple(a.contiguous() for a in args["term_args"]), **call)
+
+
+@pytest.mark.parametrize("case,error,words", [
+    ("cpu", ValueError, "x0 on cpu, not CUDA"),
+    ("rollout", ValueError, "x0 on cpu, not CUDA"),
+    ("shape", ValueError, r"xs: shape \(3, 16, 12\), expected \(3, 17, 12\)"),
+    ("dtype", TypeError, r"kffs\[3\]: dtype torch.float64, expected "
+                         r"torch.float32"),
+    ("layout", ValueError, r"Ks\[2\].mT: not contiguous"),
+    ("column", ValueError, "column 10 of a trace of 10")])
+def test_linesearch_launcher_refuses_without_loading(monkeypatch, case,
+                                                     error, words):
+    """The line-search kernel's launcher checks every argument (CPU
+    tensors, shapes, dtypes, the gains' layout, the trace's column) and
+    raises before the library is loaded."""
+    def no_library():
+        raise AssertionError("the launcher loaded the library")
+    monkeypatch.setattr(kernels, "library", no_library)
+    with pytest.raises(error, match="ddp line search kernel: " + words):
+        _linesearch_call(case)
 
 
 @pytest.mark.parametrize("relative_forces", [False, True])

@@ -3,11 +3,12 @@ the seam to its kernels.
 
 A wheel holds only the files pyproject.toml's package-data globs name, so
 every file the port opens from its own package directory at run time must
-match one of them: the CUDA sources kernels.py builds, the IPC library's
-C++ source (runtime/ipc.SOURCE) and the staircase heightfield. Each
-console script must name a callable that exists. kernels.SIGNATURES must
-type every function the CUDA sources export as they declare it, and
-kernels.check must refuse a bad argument without loading the library.
+match one of them: the CUDA sources and headers kernels.py builds, the
+IPC library's C++ source (runtime/ipc.SOURCE) and the staircase
+heightfield. Each console script must name a callable that exists.
+kernels.SIGNATURES must type every function the CUDA sources export as
+they declare it, and kernels.check must refuse a bad argument without
+loading the library.
 """
 
 import fnmatch
@@ -39,7 +40,7 @@ def _runtime_files():
     time."""
     cu = kernels.sources()
     assert cu, "no CUDA sources"
-    return cu + [ipc.SOURCE, terrain.STAIRS_HF]
+    return cu + kernels.headers() + [ipc.SOURCE, terrain.STAIRS_HF]
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, PKG)

@@ -10,9 +10,10 @@ in the benchmark's own code where no port frame is on the stack) and
 printed with how often it fired and whether it fired inside a
 `utils/profiling.host_read` span (`qrw.sync.<site>`). A site outside
 every such span is a library call that synchronizes on its own (name it)
-or a read to wrap. Also prints the cycle's launches of the K^-1 kernel
-and of the DDP derivatives kernel (one an iLQR iteration), as
-`kernels.launches()` counts them, and how many
+or a read to wrap. Also prints the cycle's launches of the K^-1 kernel,
+of the DDP derivatives kernel (one an iLQR iteration) and of the DDP
+line-search kernel (one a solve's initial rollout and one an
+iteration), as `kernels.launches()` counts them, and how many
 of the synchronizing calls fired inside the DDP solver's span
 `qrw.ilqr` (the DDP cell's target is none). With --out, also writes
 the sites as JSON to PATH.
@@ -142,6 +143,7 @@ def main(argv):
         wall = time.perf_counter() - t0
         kinv = kernels.launches("qrw_kinv").total()
         derivs = kernels.launches("qrw_ddp_derivs").total()
+        searches = kernels.launches("qrw_ddp_linesearch").total()
         cell.close()
         rows = []
         for (site, fn), n in sorted(hits.items(), key=lambda kv: -kv[1]):
@@ -152,11 +154,12 @@ def main(argv):
         report[name] = {"cycle_s": wall, "sites": rows,
                         "kinv_launches": kinv,
                         "derivs_launches": derivs,
+                        "linesearch_launches": searches,
                         "in_ilqr": sum(in_ilqr.values())}
         print(f"== {name}: one cycle {wall:.3f} s, "
               f"{sum(hits.values())} synchronizing calls at {len(rows)} "
               f"sites, {kinv} K^-1 launches, {derivs} DDP derivatives "
-              f"launches, "
+              f"and {searches} DDP line-search launches, "
               f"{sum(in_ilqr.values())} inside qrw.ilqr", flush=True)
         for r in rows:
             mark = "ok " if "-" not in r["host_read"] else "OUT"
